@@ -13,20 +13,33 @@ on failure (exit code 1, and no result line):
    printed).
 3. Each kernel against its plain PyTorch version on the card, on the same
    inputs, in f32 and bf16, at a small odd shape and at the shapes the
-   serve path gives it (B=32, T=64, H=2500 and H=800), within the
-   tolerances below.
-4. The serve path: a flagship-width export (60,000-token vocab, emb 800,
-   hidden 2500/2500/2500/800, bf16) made from a numpy seed; the port's
-   server on the card answers POST /text for issues of mixed length,
-   including an empty body and one longer than 512 tokens. Every response
-   must be 2400 finite float32 values equal, within ``EMBED_ATOL``, to the
-   same engine run on the card with the plain encoder. The kernel launch
-   counters are zeroed just before the requests and read just after: K1
-   must have run ``n_layers * chunk_len`` launches per slot step.
-5. Timing at B=32, T=512, H=2500 in bf16 with CUDA events: the kernel,
-   its plain version, and cuDNN's ``torch.nn.LSTM`` on the same layer as a
-   yardstick only (the port never calls it; it includes the input
-   projection), beside the least time the card could take.
+   serve paths give it, within the tolerances below: K1 at B=32, T=64
+   (the slot step), H=2500 and H=800; K2 (ragged) and K3 (ragged, int8
+   W_hh) at B=32, T=16 (the ragged step), with valid lengths of 0, 1,
+   mid-step and full, and a case whose second batch tile is all dead.
+4. Three serve paths on one flagship-width export (60,000-token vocab,
+   emb 800, hidden 2500/2500/2500/800, bf16) made from a numpy seed. For
+   each, the port's server on the card answers POST /text for the same 8
+   issues of mixed length, including an empty body and one longer than
+   512 tokens; every response must be 2400 finite float32 values equal,
+   within ``EMBED_ATOL``, to the same engine run on the card with the
+   plain encoder. The launch counters are zeroed just before a path's
+   requests and read just after: its kernel must have run ``n_layers``
+   launches per recurrence step the scheduler counted from its host
+   staging blocks, and the other kernels none.
+   * ``--scheduler slots`` (K1, ``chunk_len`` steps per slot step);
+   * ``--scheduler ragged`` (K2, the longest live row's steps per ragged
+     step); its embeddings must also equal the slots server's;
+   * ``--scheduler ragged --precision int8`` (K3); its weight footprint
+     must be at least 3x smaller than f32, and its largest difference
+     from the bf16 embeddings is printed.
+5. Timing with CUDA events, beside the least time the card could take
+   and a library yardstick the port never calls: K1 at B=32, T=512,
+   H=2500 in bf16 against cuDNN's ``torch.nn.LSTM`` on the same layer (it
+   includes the input projection); K2 and K3 at the ragged step (B=32,
+   T=16, H=2500, bf16 activations, K3 with int8 W_hh) with mixed valid
+   lengths, K2 against cuDNN's LSTM over a ``pack_padded_sequence`` of the
+   same lengths. K3 has no single PyTorch call for the same function.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -54,6 +67,7 @@ from code_intelligence_tpu_torch.models import (
 from code_intelligence_tpu_torch.inference.engine import InferenceEngine
 from code_intelligence_tpu_torch.ops import _build
 from code_intelligence_tpu_torch.ops import fused_lstm as K1
+from code_intelligence_tpu_torch.ops.quantize import quantize_symmetric
 from code_intelligence_tpu_torch.serving.server import build_server
 from code_intelligence_tpu_torch.text import SPECIALS, Tokenizer, Vocab
 from code_intelligence_tpu_torch.training.checkpoint import export_encoder
@@ -61,10 +75,11 @@ from code_intelligence_tpu_torch.training.checkpoint import export_encoder
 SEED = 0
 REPO = Path(__file__).resolve().parent
 
-# Kernel vs plain on the card. f32: both sides do the recurrent product in
-# full f32 and differ only in summation order. bf16: h and c are rounded to
-# bf16 after every step, so one step's order difference can move a carry
-# by one bf16 ulp (2^-8 near 1), which later steps carry on.
+# Kernel vs plain on the card, for K1, K2 and K3 alike. f32: both sides do
+# the recurrent product in full f32 and differ only in summation order.
+# bf16: h and c are rounded to bf16 after every step, so one step's order
+# difference can move a carry by one bf16 ulp (2^-8 near 1), which later
+# steps carry on.
 K1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # Served embedding vs the plain encoder, bf16 export: the bf16 carry
 # differences above, through four layers and the mean/max/last pooling.
@@ -166,17 +181,96 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bound_ms(T, B, H, dtype):
+def k1_bound_ms(T, B, H, dtype, valid=None, w_item=None):
     """The least time for one call: each input read once and each output
     written once over the HBM rate, or the recurrent product's operations
-    over the peak rate for the input type, whichever is larger."""
+    over the peak rate for the activations' type, whichever is larger.
+    With ``valid`` (K2, K3) the work is what these lengths need: x_proj
+    and the product only for live (step, row) pairs, plus the lengths;
+    ``w_item`` is W_hh's bytes per element (1 for K3, which also reads
+    its 4H f32 scales)."""
     item = torch.tensor([], dtype=dtype).element_size()
-    elems = (T * B * 4 * H + 4 * H * H + 2 * B * H  # x_proj, w_hh, h0, c0
-             + T * B * H + 2 * B * H)               # out, h_T, c_T
-    bytes_ms = elems * item / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * T * B * 4 * H * H / PEAK_FLOPS[dtype] * 1e3
+    live = T * B if valid is None else sum(min(int(v), T) for v in valid)
+    elems = (live * 4 * H + 2 * B * H       # x_proj (live part), h0, c0
+             + T * B * H + 2 * B * H)       # out, h_T, c_T
+    w_bytes = 4 * H * H * (item if w_item is None else w_item)
+    extra = (0 if valid is None else 4 * B) + (16 * H if w_item == 1 else 0)
+    bytes_ms = (elems * item + w_bytes + extra) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * live * 4 * H * H / PEAK_FLOPS[dtype] * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def valid_cases(T, B):
+    """Valid lengths per row: ``mixed`` holds 0, 1, mid-step and full
+    (t_live = T); ``short`` stops at mid-step and leaves the second half
+    of the batch, a whole 16-row tile at B=32, dead (t_live = T // 2)."""
+    mixed = [(0, 1, T // 2, T)[b % 4] for b in range(B)]
+    short = [(0, 1, T // 2)[b % 3] if b < max(1, B // 2) else 0
+             for b in range(B)]
+    return {"mixed": mixed, "short": short}
+
+
+def ragged_inputs(T, B, H, dtype, valid, int8: bool, seed=SEED):
+    """K2's arguments, or K3's (int8 codes and scales of the same W_hh
+    from the port's quantizer), with ``valid_lens`` on the card."""
+    x_proj, w_hh, h0, c0 = k1_inputs(T, B, H, dtype, seed)
+    valid_lens = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    if not int8:
+        return [x_proj, w_hh, h0, c0, valid_lens]
+    q, scale = quantize_symmetric(w_hh.float().cpu().numpy(), axis=0)
+    return [x_proj, torch.from_numpy(q).cuda(),
+            torch.from_numpy(scale).cuda(), h0, c0, valid_lens]
+
+
+def check_ragged(T, B, H, dtype, valid, int8: bool) -> float:
+    name = "K3" if int8 else "K2"
+    kernel = (K1.fused_lstm_forward_ragged_int8 if int8
+              else K1.fused_lstm_forward_ragged)
+    plain = (K1.fused_lstm_forward_ragged_int8_plain if int8
+             else K1.fused_lstm_forward_ragged_plain)
+    args = ragged_inputs(T, B, H, dtype, valid, int8)
+    out, (h, c) = kernel(*args, t_live=min(T, max(valid)))
+    torch.cuda.synchronize()
+    ref_out, (ref_h, ref_c) = plain(*args)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in ((out, ref_out), (h, ref_h), (c, ref_c)))
+    dead = (torch.arange(T, device="cuda")[:, None]
+            >= args[-1][None, :].long())
+    if not all(torch.isfinite(t.float()).all().item() for t in (out, h, c)):
+        raise AssertionError(f"{name} gave non-finite values at T={T} B={B} "
+                             f"H={H}")
+    if (out[dead] != 0).any().item():
+        raise AssertionError(f"{name} wrote non-zero outputs past the valid "
+                             f"lengths at T={T} B={B} H={H}")
+    if err > K1_ATOL[dtype]:
+        raise AssertionError(
+            f"{name} vs plain at T={T} B={B} H={H} {dtype}: max |diff| {err} "
+            f"> {K1_ATOL[dtype]}")
+    return err
+
+
+def kernel_checks() -> dict:
+    """Phase 3: every kernel against its plain version; max |diff| by
+    kernel and case."""
+    errs = {"K1": {}, "K2": {}, "K3": {}}
+    for T, B, H in ((7, 5, 40), (64, 32, 2500), (64, 32, 800)):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
+            errs["K1"][key] = check_k1(T, B, H, dtype)
+            print(f"K1 vs plain {key}: max |diff| {errs['K1'][key]:.3g} "
+                  f"(atol {K1_ATOL[dtype]})", flush=True)
+    for T, B, H in ((7, 5, 40), (16, 32, 2500), (16, 32, 800)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for case, valid in valid_cases(T, B).items():
+                key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}_{case}"
+                for name in ("K2", "K3"):
+                    errs[name][key] = check_ragged(T, B, H, dtype, valid,
+                                                   int8=name == "K3")
+                    print(f"{name} vs plain {key}: max |diff| "
+                          f"{errs[name][key]:.3g} (atol {K1_ATOL[dtype]})",
+                          flush=True)
+    return errs
 
 
 def post(port: int, issue: dict):
@@ -190,17 +284,32 @@ def post(port: int, issue: dict):
         conn.close()
 
 
-def serve_phase(model_dir: Path, docs) -> dict:
+# each serve path's kernel, by its launch counter
+PATH_KERNEL = {("slots", "f32"): "K1", ("ragged", "f32"): "K2",
+               ("ragged", "int8"): "K3"}
+COUNTERS = {"K1": K1.launches, "K2": K1.ragged_launches,
+            "K3": K1.ragged_int8_launches}
+
+
+def serve_phase(model_dir: Path, docs, scheduler: str,
+                precision: str = "f32"):
+    """Serve the docs through the port's server on one path; returns
+    ``(summary, embeddings)``."""
+    kernel = PATH_KERNEL[(scheduler, precision)]
     t0 = time.perf_counter()
     srv = build_server(model_dir, device="cuda", batch_size=32,
-                       host="127.0.0.1", port=0)
+                       host="127.0.0.1", port=0, scheduler=scheduler,
+                       precision=precision)
     boot_s = time.perf_counter() - t0
+    engine = srv.engine
+    sched = (engine.ragged_scheduler() if scheduler == "ragged"
+             else engine.slot_scheduler())
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     try:
-        sched = srv.engine.slot_scheduler()
-        steps0 = sched.steps_run
-        K1.launches.reset()  # every count to 0 just before the main path
+        steps0, rec0 = sched.steps_run, sched.recurrence_steps
+        for c in COUNTERS.values():  # every count to 0 just before the path
+            c.reset()
         got, request_ms = [], []
         for issue in docs:
             t = time.perf_counter()
@@ -209,32 +318,69 @@ def serve_phase(model_dir: Path, docs) -> dict:
             if code != 200:
                 raise AssertionError(f"POST /text gave {code}: {body[:200]!r}")
             got.append(np.frombuffer(body, dtype="<f4"))
-        launches = K1.launches.count
+        launches = {k: c.count for k, c in COUNTERS.items()}
         steps = sched.steps_run - steps0
+        rec_steps = sched.recurrence_steps - rec0
+        step_len = sched.chunk_len
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
-    for v in got:
-        if v.shape != (3 * FLAGSHIP.emb_sz,) or not np.isfinite(v).all():
-            raise AssertionError(f"bad embedding: shape {v.shape}")
-    want_per_step = FLAGSHIP.n_layers * sched.chunk_len
-    if steps == 0 or launches != want_per_step * steps:
+    got = np.stack(got)
+    if got.shape != (len(docs), 3 * FLAGSHIP.emb_sz) \
+            or not np.isfinite(got).all():
+        raise AssertionError(f"bad embeddings: shape {got.shape}")
+    want_launches = FLAGSHIP.n_layers * rec_steps
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    if steps == 0 or launches[kernel] != want_launches or others:
         raise AssertionError(
-            f"K1 launches {launches} over {steps} slot steps; expected "
-            f"{want_per_step} per step")
+            f"{scheduler}/{precision}: launches {launches} over {steps} "
+            f"steps; expected {want_launches} of {kernel} "
+            f"({FLAGSHIP.n_layers} layers x {rec_steps} recurrence steps) "
+            f"and no other kernel")
+    weight_ratio = engine.weight_bytes_f32 / engine.weight_bytes
+    del srv, engine, sched
     plain = InferenceEngine.from_export(model_dir, batch_size=32,
-                                        scheduler="slots", device="cuda",
-                                        plain=True)
+                                        scheduler=scheduler, device="cuda",
+                                        precision=precision, plain=True)
     want = plain.embed_issues(docs)
-    err = float(np.abs(np.stack(got) - want).max())
+    del plain
+    torch.cuda.empty_cache()
+    err = float(np.abs(got - want).max())
     if err > EMBED_ATOL:
-        raise AssertionError(f"served vs plain encoder: max |diff| {err} > "
+        raise AssertionError(f"{scheduler}/{precision} served vs plain "
+                             f"encoder: max |diff| {err} > {EMBED_ATOL}")
+    return {"scheduler": scheduler, "precision": precision, "kernel": kernel,
+            "boot_s": boot_s, "requests": len(docs), "steps": steps,
+            "step_len": step_len, "recurrence_steps": rec_steps,
+            "launches": launches[kernel], "launches_expected": want_launches,
+            "request_ms": request_ms, "embed_max_abs_err": err,
+            "embed_atol": EMBED_ATOL,
+            "weight_footprint_ratio": weight_ratio}, got
+
+
+def serve_paths(model_dir: Path, docs) -> dict:
+    """Phase 4: the three serve paths, each against its plain engine; the
+    ragged one also against the slots one."""
+    slots, emb_slots = serve_phase(model_dir, docs, "slots")
+    print(json.dumps({"serve_slots": slots}), flush=True)
+    ragged, emb_ragged = serve_phase(model_dir, docs, "ragged")
+    ragged["vs_slots_max_abs_err"] = float(np.abs(emb_ragged
+                                                  - emb_slots).max())
+    print(json.dumps({"serve_ragged": ragged}), flush=True)
+    if ragged["vs_slots_max_abs_err"] > EMBED_ATOL:
+        raise AssertionError(f"ragged vs slots server: max |diff| "
+                             f"{ragged['vs_slots_max_abs_err']} > "
                              f"{EMBED_ATOL}")
-    return {"boot_s": boot_s, "requests": len(docs), "slot_steps": steps,
-            "chunk_len": sched.chunk_len, "launches": launches,
-            "launches_per_step": want_per_step, "request_ms": request_ms,
-            "embed_max_abs_err": err, "embed_atol": EMBED_ATOL}
+    int8, emb_int8 = serve_phase(model_dir, docs, "ragged", "int8")
+    # quantization error, printed and not gated (int8_check.py gates its
+    # band on the small engine)
+    int8["vs_bf16_max_abs_diff"] = float(np.abs(emb_int8 - emb_slots).max())
+    print(json.dumps({"serve_ragged_int8": int8}), flush=True)
+    if int8["weight_footprint_ratio"] < 3.0:
+        raise AssertionError(f"int8 weight footprint ratio "
+                             f"{int8['weight_footprint_ratio']} < 3")
+    return {"K1": slots, "K2": ragged, "K3": int8}
 
 
 def timing_phase() -> dict:
@@ -264,6 +410,54 @@ def timing_phase() -> dict:
             "ms_T64": step_ms, "bound_ms_T64": k1_bound_ms(64, B, H, dtype)[0]}
 
 
+def ragged_timing_phase() -> dict:
+    """K2 and K3 at the ragged step's shape, with seeded valid lengths in
+    [1, 16] and one full row (so all 16 steps launch)."""
+    T, B, H, dtype = 16, 32, 2500, torch.bfloat16
+    rng = np.random.default_rng(SEED + 3)
+    valid = [int(v) for v in rng.integers(1, T + 1, B)]
+    valid[0] = T
+    out = {"shape": {"T": T, "B": B, "H": H, "dtype": "bfloat16",
+                     "valid_lens": valid}}
+    for name, int8 in (("K2", False), ("K3", True)):
+        args = ragged_inputs(T, B, H, dtype, valid, int8, seed=SEED + 4)
+        kernel = (K1.fused_lstm_forward_ragged_int8 if int8
+                  else K1.fused_lstm_forward_ragged)
+        plain = (K1.fused_lstm_forward_ragged_int8_plain if int8
+                 else K1.fused_lstm_forward_ragged_plain)
+        bound_ms, bound_by = k1_bound_ms(T, B, H, dtype, valid,
+                                         w_item=1 if int8 else None)
+        out[name] = {
+            "ms": cuda_ms(lambda: kernel(*args, t_live=T), reps=10),
+            "plain_ms": cuda_ms(lambda: plain(*args), reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    out["K2"]["library_ms"] = packed_lstm_ms(T, B, H, dtype, valid)
+    out["K3"]["library_ms"] = None
+    out["K3"]["library_note"] = ("no single PyTorch call computes an LSTM "
+                                 "over int8 recurrent weights")
+    return out
+
+
+def packed_lstm_ms(T, B, H, dtype, valid):
+    """cuDNN's LSTM over a packed batch of the same lengths: a yardstick
+    only, never on the port's path (it includes the input projection)."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    lstm = torch.nn.LSTM(H, H).to("cuda", dtype)
+    x = torch.randn((T, B, H), device="cuda", dtype=dtype)
+    packed = pack_padded_sequence(x, torch.tensor(valid),
+                                  enforce_sorted=False)
+    state = tuple(torch.zeros((1, B, H), device="cuda", dtype=dtype)
+                  for _ in range(2))
+    try:
+        with torch.inference_mode():
+            return cuda_ms(lambda: lstm(packed, state), reps=10)
+    except RuntimeError as e:
+        print(f"cuDNN packed LSTM yardstick unavailable: {e}",
+              file=sys.stderr)
+        return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -280,13 +474,7 @@ def main() -> int:
             print(b.log.strip(), file=sys.stderr)
 
         phase = "kernel vs plain"
-        errs = {}
-        for T, B, H in ((7, 5, 40), (64, 32, 2500), (64, 32, 800)):
-            for dtype in (torch.float32, torch.bfloat16):
-                key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
-                errs[key] = check_k1(T, B, H, dtype)
-                print(f"K1 vs plain {key}: max |diff| {errs[key]:.3g} "
-                      f"(atol {K1_ATOL[dtype]})", flush=True)
+        errs = kernel_checks()
 
         phase = "serve"
         rng = np.random.default_rng(SEED)
@@ -298,23 +486,26 @@ def main() -> int:
                            FLAGSHIP, flagship_vocab(docs))
             print(f"export written in {time.perf_counter() - t0:.1f} s",
                   flush=True)
-            serve = serve_phase(Path(tmp), docs)
-        print(json.dumps({"serve": serve}), flush=True)
+            serve = serve_paths(Path(tmp), docs)
 
         phase = "timing"
         timing = timing_phase()
         print(json.dumps({"timing": timing}), flush=True)
+        ragged_timing = ragged_timing_phase()
+        print(json.dumps({"ragged_timing": ragged_timing}), flush=True)
     except Exception as e:  # any failed phase fails the run
         print(f"chip_smoke: phase '{phase}' failed: {e!r}", file=sys.stderr)
         raise
+    source = "code_intelligence_tpu_torch/csrc/fused_lstm.cu"
+    replaces = "code_intelligence_tpu/ops/pallas_lstm.py:"
     kernels = [{
         "name": "fused_lstm_forward",
         "route": "cuda",
-        "source": "code_intelligence_tpu_torch/csrc/fused_lstm.cu",
-        "replaces": "code_intelligence_tpu/ops/pallas_lstm.py:286",
-        "launches": serve["launches"],
-        "max_abs_err": max(errs.values()),
-        "max_abs_err_by_case": errs,
+        "source": source,
+        "replaces": replaces + "286",
+        "launches": serve["K1"]["launches"],
+        "max_abs_err": max(errs["K1"].values()),
+        "max_abs_err_by_case": errs["K1"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -322,6 +513,24 @@ def main() -> int:
         "library_ms": timing["library_ms"],
         "timed_shape": timing["shape"],
     }]
+    for name, fn, line in (("K2", "fused_lstm_forward_ragged", "457"),
+                           ("K3", "fused_lstm_forward_ragged_int8", "661")):
+        t = ragged_timing[name]
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces + line,
+            "launches": serve[name]["launches"],
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "timed_shape": ragged_timing["shape"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

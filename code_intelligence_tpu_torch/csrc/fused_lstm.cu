@@ -1,6 +1,7 @@
-// Fused LSTM recurrence, inference forward (kernel K1), for Hopper (sm_90a).
+// Fused LSTM recurrence, inference forward, for Hopper (sm_90a): kernel K1
+// and its length-aware variants K2 (ragged) and K3 (ragged, int8 W_hh).
 //
-// Replaces the TPU kernel code_intelligence_tpu/ops/pallas_lstm.py::
+// K1 replaces the TPU kernel code_intelligence_tpu/ops/pallas_lstm.py::
 // fused_lstm_forward with with_gates=False (body _kernel_no_gates). Same
 // function, time-major:
 //
@@ -14,22 +15,40 @@
 // x_proj (T, B, 4H) is x @ W_ih^T + b, computed outside the kernel as in the
 // JAX package. W_hh is (4H, H), gate order i, f, g, o.
 //
-// What bounds it on an H100: every step needs all of W_hh (4H*H elements:
-// 50 MB in bf16 and 100 MB in f32 at H=2500) against the previous step's h.
-// That is more than the card's shared memory (~30 MB over 132 SMs) and as
-// large as its 50 MB L2, so the TPU kernel's trick of keeping W_hh resident
-// on chip for the whole sequence does not carry over: each step streams
-// W_hh again, and a step can take no less than 4H*H*itemsize / 3.35 TB/s
-// (about 15 us in bf16 at H=2500). The step's 2*B*4H*H FLOPs (1.6 GFLOP at
-// B=32) would take under 2 us on the tensor cores; this kernel does them as
-// f32 FMAs on the CUDA cores (67 TFLOP/s), where they need at least 24 us,
-// so at B=32 the FMAs, not the bytes, set its floor.
+// K2 replaces fused_lstm_forward_ragged (body _ragged_kernel): K1 plus
+// valid_lens (B,) int32 on the device. Row b is live at step t while
+// t < valid_lens[b]; a dead row keeps its h and c and writes out[t, b] = 0,
+// so h_T, c_T are each row's carry after min(valid, T) steps. The host
+// launches only the first t_live steps (t_live >= max(valid_lens), given by
+// the caller, which knows the lengths on the host: reading valid_lens back
+// would sync every layer) and zero-fills out[t_live:]. Inside a step, a
+// block whose batch rows are all dead skips the product, the counterpart
+// of the TPU kernel's exhausted-tile skip.
 //
-// Design, simple first:
-//  * One launch per time step; the host loop enqueues T launches on the
-//    caller's stream, which orders the steps. h_{t-1} is read back from
-//    out[t-1]; c ping-pongs between a scratch buffer and c_T, so the last
-//    step lands in c_T.
+// K3 replaces fused_lstm_forward_ragged_int8 (body _ragged_kernel_int8): K2
+// with W_hh as int8 codes (4H, H) and an f32 scale per output row (4H,).
+// The codes are widened to f32 in registers, sum(h[k] * q[j, k]) is taken
+// in f32, and the row's scale multiplies that sum before x_proj is added,
+// as the TPU kernel does; no dequantized W_hh exists anywhere.
+//
+// What bounds them on an H100: every step needs all of W_hh (4H*H elements:
+// 50 MB in bf16, 100 MB in f32 and 25 MB in int8 at H=2500) against the
+// previous step's h. That is more than the card's shared memory (~30 MB
+// over 132 SMs) and as large as its 50 MB L2, so the TPU kernel's trick of
+// keeping W_hh resident on chip for the whole sequence does not carry
+// over: each step streams W_hh again, and a step can take no less than
+// 4H*H*itemsize / 3.35 TB/s (about 15 us in bf16 at H=2500). The step's
+// 2*B*4H*H FLOPs (1.6 GFLOP at B=32) would take under 2 us on the tensor
+// cores; these kernels do them as f32 FMAs on the CUDA cores (67 TFLOP/s),
+// where they need at least 24 us, so at B=32 the FMAs, not the bytes, set
+// their floor.
+//
+// Design, simple first (one template serves all three kernels):
+//  * One launch per time step; the host loop enqueues the launches on the
+//    caller's stream, which orders the steps. K1 reads h_{t-1} back from
+//    out[t-1]; K2 and K3 write zeros there for dead rows, so they carry h
+//    in its own buffer. Carries ping-pong between a scratch buffer and
+//    h_T / c_T, so the last step lands in h_T / c_T.
 //  * A block owns kUnits hidden units, one warp each, and a tile of
 //    kBatchTile batch rows. A warp holds all four gate rows of its unit
 //    (rows j, H+j, 2H+j, 3H+j of W_hh), so the cell update needs no second
@@ -43,6 +62,8 @@
 //    thread issues its loads in batches before using them: all its staging
 //    loads of a chunk, then 8 columns of each of its four W_hh rows as two
 //    vector loads per row (when H % 4 == 0; otherwise one column at a time).
+//    An int8 row of H=2500 is 4-byte but not 16-byte aligned, so K3's
+//    vector load is 4 codes (one char4).
 //  * Batch tiles are the fastest-varying block index, so the blocks that
 //    read the same W_hh rows run together and the second read hits L2.
 //  Tensor cores (wgmma), TMA and a persistent design that keeps h on chip
@@ -51,6 +72,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -65,6 +89,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -79,8 +104,8 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Four consecutive elements as f32, in one 8-byte (bf16) or 16-byte (f32)
-// load; p is 4-element aligned.
+// Four consecutive elements as f32, in one 4-byte (int8), 8-byte (bf16) or
+// 16-byte (f32) load; p is 4-element aligned.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -91,6 +116,10 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[1] = __uint_as_float(q.x & 0xffff0000u);
   v[2] = __uint_as_float(q.y << 16);
   v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
+  const char4 q = *reinterpret_cast<const char4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
 // Stages h_prev[b0 .. b0+kBatchTile, k0 .. k0+kChunk) into hs as f32, zero
@@ -173,21 +202,38 @@ __device__ __forceinline__ void halve_rows(float (&acc)[4][kBatchTile],
 // shared-memory reads of a row are 512 contiguous bytes (no bank conflicts)
 // and its 8 W_hh loads per pass cover 2 KB. Otherwise one column per load.
 // kChunk is a multiple of 256, so a pass never straddles two chunks.
-template <typename T, bool kVec>
+// T is the activation type, W the weight type (T for K1 and K2, int8_t for
+// K3). kRagged (K2, K3) adds the per-row freeze at step t and the h carry.
+template <typename T, typename W, bool kVec, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
-lstm_step(const T* __restrict__ x_proj,  // (B, 4H), this step
-          const T* __restrict__ w_hh,    // (4H, H)
-          const T* __restrict__ h_prev,  // (B, H)
-          const T* __restrict__ c_prev,  // (B, H)
-          T* __restrict__ h_out,         // (B, H), out[t]
-          T* __restrict__ c_out,         // (B, H)
-          T* __restrict__ h_last,        // (B, H) on the last step, else null
+lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
+          const W* __restrict__ w_hh,     // (4H, H)
+          const float* __restrict__ w_scale,  // (4H,), int8 W only
+          const int* __restrict__ valid,  // (B,), kRagged only
+          int t,                          // this step, kRagged only
+          const T* __restrict__ h_prev,   // (B, H)
+          const T* __restrict__ c_prev,   // (B, H)
+          T* __restrict__ h_out,          // (B, H): out[t] for K1, else carry
+          T* __restrict__ c_out,          // (B, H)
+          T* __restrict__ h_last,         // K1: (B, H) on the last step, else null
+          T* __restrict__ y_out,          // kRagged: (B, H), out[t]
           int B, int H) {
+  constexpr bool kInt8 = std::is_same<W, int8_t>::value;
   __shared__ __align__(16) float hs[kBatchTile][kChunk];
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.y * kUnits + (threadIdx.x >> 5);
   const int b0 = blockIdx.x * kBatchTile;
   const bool active = j < H;
+
+  // A tile whose rows are all past their valid length does no product; the
+  // flag is the same for every thread of the block, so the barriers in the
+  // loops below stay uniform.
+  bool tile_live = true;
+  if constexpr (kRagged) {
+    const int b = b0 + (int)threadIdx.x;
+    tile_live = __syncthreads_or(threadIdx.x < kBatchTile && b < B &&
+                                 t < valid[b]) != 0;
+  }
 
   float acc[4][kBatchTile];
 #pragma unroll
@@ -196,9 +242,11 @@ lstm_step(const T* __restrict__ x_proj,  // (B, 4H), this step
     for (int bb = 0; bb < kBatchTile; ++bb) acc[g][bb] = 0.0f;
 
   const size_t HH = (size_t)H * H;
-  const T* w_row = w_hh + (size_t)(active ? j : 0) * H;  // gate i row
+  const W* w_row = w_hh + (size_t)(active ? j : 0) * H;  // gate i row
 
-  if constexpr (kVec) {
+  if (!tile_live) {
+    // every row of the tile is frozen this step: no product
+  } else if constexpr (kVec) {
     // Passes of 256 columns walk the whole row; a chunk of h is staged
     // every kChunk columns. The next pass's W_hh loads are issued before
     // the current pass's FMAs, so their latency hides behind them.
@@ -249,31 +297,54 @@ lstm_step(const T* __restrict__ x_proj,  // (B, 4H), this step
   }
   if (!active) return;  // no barrier follows
 
-  // Reduce-scatter across the warp: at each offset a lane keeps half of its
-  // batch rows and adds its partner's partial sums for them, so the values
-  // halve each level (64 shuffles in all). Afterwards lanes 2*bb and 2*bb+1
-  // hold the totals of batch row bb, and the 16 rows finish in parallel.
-  halve_rows<16>(acc, lane);
-  halve_rows<8>(acc, lane);
-  halve_rows<4>(acc, lane);
-  halve_rows<2>(acc, lane);
+  if (tile_live) {
+    // Reduce-scatter across the warp: at each offset a lane keeps half of
+    // its batch rows and adds its partner's partial sums for them, so the
+    // values halve each level (64 shuffles in all). Afterwards lanes 2*bb
+    // and 2*bb+1 hold the totals of batch row bb, and the 16 rows finish in
+    // parallel.
+    halve_rows<16>(acc, lane);
+    halve_rows<8>(acc, lane);
+    halve_rows<4>(acc, lane);
+    halve_rows<2>(acc, lane);
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
-    acc[g][0] += __shfl_xor_sync(0xffffffffu, acc[g][0], 1);
+    for (int g = 0; g < 4; ++g)
+      acc[g][0] += __shfl_xor_sync(0xffffffffu, acc[g][0], 1);
+  }
 
   const int b = b0 + (lane >> 1);
   if ((lane & 1) || b >= B) return;
-  const T* xp = x_proj + (size_t)b * 4 * H;
-  const float ig = sigmoid(to_f32(xp[j]) + acc[0][0]);
-  const float fg = sigmoid(to_f32(xp[H + j]) + acc[1][0]);
-  const float gg = tanhf(to_f32(xp[2 * H + j]) + acc[2][0]);
-  const float og = sigmoid(to_f32(xp[3 * H + j]) + acc[3][0]);
   const size_t at = (size_t)b * H + j;
+  if constexpr (kRagged) {
+    if (t >= valid[b]) {  // dead row: the carry stays, the output is 0
+      h_out[at] = h_prev[at];
+      c_out[at] = c_prev[at];
+      y_out[at] = from_f32<T>(0.0f);
+      return;
+    }
+  }
+  float dot[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    dot[g] = acc[g][0];
+    // per output row: (h . q_row) * scale, as the TPU kernel scales its
+    // accumulator after the product
+    if constexpr (kInt8) dot[g] *= w_scale[g * H + j];
+  }
+  const T* xp = x_proj + (size_t)b * 4 * H;
+  const float ig = sigmoid(to_f32(xp[j]) + dot[0]);
+  const float fg = sigmoid(to_f32(xp[H + j]) + dot[1]);
+  const float gg = tanhf(to_f32(xp[2 * H + j]) + dot[2]);
+  const float og = sigmoid(to_f32(xp[3 * H + j]) + dot[3]);
   const float c = fg * to_f32(c_prev[at]) + ig * gg;
   const T h = from_f32<T>(og * tanhf(c));
   h_out[at] = h;
   c_out[at] = from_f32<T>(c);
-  if (h_last != nullptr) h_last[at] = h;
+  if constexpr (kRagged) {
+    y_out[at] = h;
+  } else {
+    if (h_last != nullptr) h_last[at] = h;
+  }
 }
 
 template <typename T>
@@ -284,7 +355,8 @@ int run(const void* x_proj, const void* w_hh, const void* h0, const void* c0,
   T* o = static_cast<T*>(out);
   const size_t BH = (size_t)B * H;
   const dim3 grid((B + kBatchTile - 1) / kBatchTile, (H + kUnits - 1) / kUnits);
-  const auto step = H % 4 == 0 ? lstm_step<T, true> : lstm_step<T, false>;
+  const auto step = H % 4 == 0 ? lstm_step<T, T, true, false>
+                               : lstm_step<T, T, false, false>;
   // c after step t lands in c_T when (T-1-t) is even, else in the scratch,
   // so the steps alternate buffers and the last one writes c_T.
   auto c_after = [&](int t) -> T* {
@@ -296,9 +368,57 @@ int run(const void* x_proj, const void* w_hh, const void* h0, const void* c0,
     const T* cp = t == 0 ? static_cast<const T*>(c0) : c_after(t - 1);
     T* h_last = t == T_len - 1 ? static_cast<T*>(h_t) : nullptr;
     step<<<grid, kThreads, 0, stream>>>(
-        xp + (size_t)t * 4 * BH, static_cast<const T*>(w_hh), hp, cp,
-        o + (size_t)t * BH, c_after(t), h_last, B, H);
+        xp + (size_t)t * 4 * BH, static_cast<const T*>(w_hh), nullptr,
+        nullptr, t, hp, cp, o + (size_t)t * BH, c_after(t), h_last, nullptr,
+        B, H);
     const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2 (W = T) and K3 (W = int8_t): t_live launches, then the dead tail of out
+// is zero-filled. With t_live = 0 the carry is h0, c0.
+template <typename T, typename W>
+int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
+               const int* valid, const void* h0, const void* c0, void* out,
+               void* h_t, void* c_t, void* h_scratch, void* c_scratch,
+               int T_len, int t_live, int B, int H, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x_proj);
+  T* o = static_cast<T*>(out);
+  const size_t BH = (size_t)B * H;
+  cudaError_t err = cudaSuccess;
+  if (t_live < T_len) {
+    err = cudaMemsetAsync(o + (size_t)t_live * BH, 0,
+                          (size_t)(T_len - t_live) * BH * sizeof(T), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (t_live == 0) {
+    err = cudaMemcpyAsync(h_t, h0, BH * sizeof(T), cudaMemcpyDeviceToDevice,
+                          stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(c_t, c0, BH * sizeof(T),
+                            cudaMemcpyDeviceToDevice, stream);
+    return (int)err;
+  }
+  const dim3 grid((B + kBatchTile - 1) / kBatchTile, (H + kUnits - 1) / kUnits);
+  const auto step = H % 4 == 0 ? lstm_step<T, W, true, true>
+                               : lstm_step<T, W, false, true>;
+  // the carry after step t: h_T / c_T when (t_live-1-t) is even, else the
+  // scratch, so the last live step writes h_T / c_T
+  auto after = [&](int t, void* last, void* scratch) -> T* {
+    return static_cast<T*>(((t_live - 1 - t) % 2 == 0) ? last : scratch);
+  };
+  for (int t = 0; t < t_live; ++t) {
+    const T* hp = t == 0 ? static_cast<const T*>(h0)
+                         : after(t - 1, h_t, h_scratch);
+    const T* cp = t == 0 ? static_cast<const T*>(c0)
+                         : after(t - 1, c_t, c_scratch);
+    step<<<grid, kThreads, 0, stream>>>(
+        xp + (size_t)t * 4 * BH, static_cast<const W*>(w_hh), w_scale, valid,
+        t, hp, cp, after(t, h_t, h_scratch), after(t, c_t, c_scratch),
+        nullptr, o + (size_t)t * BH, B, H);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -322,6 +442,47 @@ int fused_lstm_forward(int dtype, const void* x_proj, const void* w_hh,
   if (dtype == 1)
     return run<__nv_bfloat16>(x_proj, w_hh, h0, c0, out, h_t, c_t, c_scratch,
                               T, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2. dtype: 0 = float32, 1 = bfloat16, for x_proj, w_hh, h0, c0, out,
+// h_t, c_t and the (B, H) scratches; valid is (B,) int32. 0 <= t_live <= T
+// and t_live >= max(valid); T = 0 is the caller's to handle.
+int fused_lstm_forward_ragged(int dtype, const void* x_proj, const void* w_hh,
+                              const int* valid, const void* h0,
+                              const void* c0, void* out, void* h_t, void* c_t,
+                              void* h_scratch, void* c_scratch, int T,
+                              int t_live, int B, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_ragged<float, float>(x_proj, w_hh, nullptr, valid, h0, c0, out,
+                                    h_t, c_t, h_scratch, c_scratch, T, t_live,
+                                    B, H, s);
+  if (dtype == 1)
+    return run_ragged<__nv_bfloat16, __nv_bfloat16>(
+        x_proj, w_hh, nullptr, valid, h0, c0, out, h_t, c_t, h_scratch,
+        c_scratch, T, t_live, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3: as K2, with w_hh_q int8 (4H, H) and w_scale f32 (4H,); dtype is the
+// activations' type.
+int fused_lstm_forward_ragged_int8(int dtype, const void* x_proj,
+                                   const void* w_hh_q, const float* w_scale,
+                                   const int* valid, const void* h0,
+                                   const void* c0, void* out, void* h_t,
+                                   void* c_t, void* h_scratch,
+                                   void* c_scratch, int T, int t_live, int B,
+                                   int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_ragged<float, int8_t>(x_proj, w_hh_q, w_scale, valid, h0, c0,
+                                     out, h_t, c_t, h_scratch, c_scratch, T,
+                                     t_live, B, H, s);
+  if (dtype == 1)
+    return run_ragged<__nv_bfloat16, int8_t>(
+        x_proj, w_hh_q, w_scale, valid, h0, c0, out, h_t, c_t, h_scratch,
+        c_scratch, T, t_live, B, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

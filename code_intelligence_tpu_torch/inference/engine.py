@@ -4,22 +4,30 @@ Port of the JAX package's ``inference/engine.py::InferenceEngine``:
 tokenize -> encoder forward -> concat[mean, max, last] of the last
 layer's hidden states -> a ``3*emb_sz`` (2400-d) float32 embedding.
 
-* Two batching paths: ``"slots"`` (continuous batching,
-  ``inference/slots.py``; the server's default) and ``"groups"`` (the
-  length-sorted lock-step path, kept as the parity reference).
+* Three batching paths: ``"slots"`` (continuous batching,
+  ``inference/slots.py``; the server's default), ``"ragged"`` (the same
+  loop with paged state and a 16-token length-aware step,
+  ``RaggedSlotScheduler``) and ``"groups"`` (the length-sorted lock-step
+  path, kept as the parity reference).
 * Docs longer than the largest bucket run in ``chunk_len`` windows whose
   LSTM state carries across chunks; pooling accumulates across chunks and
   masks padding, so it equals full-sequence pooling.
 
+* ``precision="int8"`` quantizes the f32 export at load
+  (``ops/quantize.py``): int8 codes plus f32 per-channel scales replace
+  the embedding and every LSTM weight, as in the JAX engine.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``.
-Every LSTM layer goes through K1 (``ops/fused_lstm.py``); ``plain=True``
-runs K1's plain PyTorch version instead, as the reference on the card.
-Mesh serving, int8, the ragged scheduler and the flight recorder are not
+Every LSTM layer goes through a kernel of ``ops/fused_lstm.py``: K1 on
+the dense paths, K2 on the ragged one, K3 on every path under int8;
+``plain=True`` runs the kernels' plain PyTorch versions instead, as the
+reference on the card. Mesh serving and the flight recorder are not
 ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -29,6 +37,11 @@ from code_intelligence_tpu_torch.models import (
     AWDLSTMConfig,
     AWDLSTMEncoder,
     init_lstm_states,
+)
+from code_intelligence_tpu_torch.ops.quantize import (
+    SCALE_SUFFIX,
+    quantize_encoder_params,
+    tree_bytes,
 )
 from code_intelligence_tpu_torch.text import (
     TK_UNK,
@@ -57,12 +70,27 @@ class InferenceEngine:
         version: str = "unversioned",
         device="cuda",
         plain: bool = False,
+        precision: str = "f32",
     ):
         self.device = resolve_device(device)
+        if precision not in ("f32", "int8"):
+            raise ValueError(
+                f"precision must be 'f32' or 'int8', got {precision!r}")
+        # the engine owns the serve precision; exports stay f32
+        config = dataclasses.replace(config, precision=precision)
+        self.precision = precision
         self.config = config
         self.vocab = vocab
+        enc = params_from_numpy(params)
+        # the footprint before quantization: the f32 baseline of the
+        # encoder_weight_bytes gauge and of the int8 check's ratio
+        self.weight_bytes_f32 = tree_bytes(enc)
+        if precision == "int8" and "embedding" + SCALE_SUFFIX not in enc:
+            enc = params_from_numpy(quantize_encoder_params(
+                {k: v.numpy() for k, v in enc.items()}, config))
+        self.weight_bytes = tree_bytes(enc)
         self.encoder = AWDLSTMEncoder(config, device=self.device, plain=plain)
-        self.encoder.load_state_dict(params_from_numpy(params))
+        self.encoder.load_state_dict(enc)
         self.encoder.eval()
         self.buckets = tuple(sorted(buckets))
         self.batch_size = batch_size
@@ -72,6 +100,7 @@ class InferenceEngine:
         self.embed_dim = 3 * config.emb_sz
         self.scheduler = self._check_scheduler(scheduler)
         self._slot_scheduler = None
+        self._ragged_scheduler = None
         self.version = version
         self.vocab_hash = vocab.content_hash()
 
@@ -144,13 +173,10 @@ class InferenceEngine:
 
     @staticmethod
     def _check_scheduler(scheduler: str) -> str:
-        if scheduler == "ragged":
-            raise NotImplementedError(
-                "the ragged scheduler is not ported yet (ROADMAP.md queue 1 "
-                "item 5, with kernel K2)")
-        if scheduler not in ("groups", "slots"):
+        if scheduler not in ("groups", "slots", "ragged"):
             raise ValueError(
-                f"scheduler must be 'groups' or 'slots', got {scheduler!r}")
+                f"scheduler must be 'groups', 'slots' or 'ragged', got "
+                f"{scheduler!r}")
         return scheduler
 
     def slot_scheduler(self, registry=None):
@@ -164,6 +190,19 @@ class InferenceEngine:
             self._slot_scheduler.bind_registry(registry)
         return self._slot_scheduler
 
+    def ragged_scheduler(self, registry=None):
+        """The engine's ragged paged scheduler, created on first use; one
+        ``(batch_size, page_len)`` step shape for its lifetime."""
+        from code_intelligence_tpu_torch.inference.slots import (
+            RaggedSlotScheduler)
+
+        if self._ragged_scheduler is None:
+            self._ragged_scheduler = RaggedSlotScheduler(self,
+                                                         registry=registry)
+        elif registry is not None:
+            self._ragged_scheduler.bind_registry(registry)
+        return self._ragged_scheduler
+
     def embed_ids_batch(self, id_seqs: Sequence[np.ndarray],
                         scheduler: Optional[str] = None) -> np.ndarray:
         """Embed numericalized docs; returns ``(N, 3*emb_sz)`` float32 on the
@@ -171,6 +210,8 @@ class InferenceEngine:
         policy = self._check_scheduler(scheduler or self.scheduler)
         if policy == "slots":
             return self.slot_scheduler().embed_ids(id_seqs)
+        if policy == "ragged":
+            return self.ragged_scheduler().embed_ids(id_seqs)
         n = len(id_seqs)
         out = np.zeros((n, self.embed_dim), np.float32)
         # length-sorted grouping into fixed buckets
@@ -207,11 +248,22 @@ class InferenceEngine:
                     chunk = s[ci * bucket:(ci + 1) * bucket]
                     tokens[r, :len(chunk)] = chunk
                     lengths[r] = len(chunk)
+                lengths_dev = torch.from_numpy(lengths).to(self.device)
                 raw, states = self.encoder(
-                    torch.from_numpy(tokens).to(self.device), states)
-                pool = self._accumulate_pool(
-                    raw, torch.from_numpy(lengths).to(self.device), pool)
+                    torch.from_numpy(tokens).to(self.device), states,
+                    **self._length_aware_kw(lengths_dev, lengths))
+                pool = self._accumulate_pool(raw, lengths_dev, pool)
         return pool
+
+    def _length_aware_kw(self, lengths_dev: torch.Tensor,
+                         lengths: np.ndarray) -> dict:
+        """The encoder's ``valid_lens``/``t_live`` for one dense chunk of
+        an int8 engine, whose layers run K3 on every path; none for f32,
+        whose dense layers run K1. Exact: a row that goes on to a next
+        chunk had a full one, and the pooling masks the zeroed tail."""
+        if self.precision != "int8":
+            return {}
+        return {"valid_lens": lengths_dev, "t_live": int(lengths.max())}
 
     def embed_text(self, text: str) -> np.ndarray:
         """``(3*emb_sz,)`` embedding of one pre-processed document string."""

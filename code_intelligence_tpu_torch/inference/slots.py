@@ -18,6 +18,17 @@ Invariant: slot reuse never leaks state across documents. A refill sets
 the slot's reset bit, and the step zeroes that slot's LSTM state and
 re-initializes its pool row before the chunk runs.
 
+Ragged paged mode (:class:`RaggedSlotScheduler`, ``--scheduler ragged``),
+the twin of the JAX package's: the dense step makes every row pay
+``chunk_len`` steps whatever its valid tokens, so short reports pay for
+long ones and idle slots burn full lanes. The ragged scheduler steps
+``page_len`` tokens at a time, keeps the carried state and pool rows in
+page arenas indexed by a page table that rides the staging block, and
+hands the staged lengths to the encoder, whose layers then run the
+length-aware kernels K2 (or K3 under int8): a step launches only as many
+recurrence steps as its longest live row needs (``t_live``, read from the
+host staging block, never from the device).
+
 The step runs eagerly; capturing it in a CUDA graph, and pinned staging
 buffers, are later work.
 """
@@ -26,7 +37,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Deque, List, Optional, Sequence
+from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,15 +71,25 @@ class SlotScheduler:
     The step's ``chunk_len`` is the engine's bucket nearest 64 tokens, as
     in the JAX package: short reports don't ride a 512-wide step, and long
     docs don't dissolve into per-step overhead.
+
+    An int8 engine's layers run K3, which takes each row's valid length:
+    the step passes the staged chunk lengths and their host-side maximum
+    (``recurrence_steps`` counts those steps, so a run can predict K3's
+    launches). An f32 engine's step runs K1 over the whole chunk.
     """
 
     _STAGING_EXTRA = 2  # [length, refill-reset] ride after the tokens
 
-    def __init__(self, engine, registry=None):
+    def __init__(self, engine, registry=None,
+                 chunk_len: Optional[int] = None):
         self.engine = engine
         self.device = engine.device
         self.batch_size = engine.batch_size
-        self.chunk_len = engine._bucket_for_static(64, engine.buckets)
+        self.chunk_len = chunk_len or engine._bucket_for_static(
+            64, engine.buckets)
+        # the encoder takes valid lengths (K2/K3) rather than running K1
+        self._length_aware = engine.precision == "int8"
+        self._t_live = 0  # this step's longest valid length, from the host
         self.registry = None
         self._lock = threading.Lock()  # serializes embed_ids callers
         B, C = self.batch_size, self.chunk_len
@@ -88,6 +109,9 @@ class SlotScheduler:
         # lane-token a step paid for, valid = the ones carrying content
         self.tokens_stepped = 0
         self.tokens_valid = 0
+        # time steps the encoder's recurrence ran, summed over scheduler
+        # steps (each layer launches its kernel once per such step)
+        self.recurrence_steps = 0
         self.h2d_bytes = 0
         self.d2h_bytes = 0
         if registry is not None:
@@ -120,6 +144,17 @@ class SlotScheduler:
             "h2d_d2h_bytes",
             "bytes moved across the host-device boundary by the serve "
             "path, by direction")
+        registry.gauge(
+            "serve_precision_int8",
+            "1 when the engine serves the int8-quantized encoder "
+            "(--precision int8), 0 for f32")
+        registry.gauge(
+            "encoder_weight_bytes",
+            "encoder weight bytes as loaded (int8 codes + f32 scales under "
+            "--precision int8; the f32 checkpoint size otherwise)")
+        registry.set("serve_precision_int8",
+                     1 if self.engine.precision == "int8" else 0)
+        registry.set("encoder_weight_bytes", self.engine.weight_bytes)
         self.registry = registry
         self._export_transfer_gauges()
 
@@ -149,9 +184,10 @@ class SlotScheduler:
         return (pool[:, :E], pool[:, E:2 * E], pool[:, 2 * E:3 * E],
                 pool[:, 3 * E])
 
-    def _step(self, staged: torch.Tensor) -> None:
-        """One ``(B, chunk_len)`` step on the device: reset refilled slots,
-        run the encoder on the chunk, accumulate the pool."""
+    def _run_chunk(self, staged: torch.Tensor, states, pool):
+        """Reset the refilled rows, run the encoder on the staged chunk and
+        accumulate the pool: ``(new_states, new_pool)`` for the rows given
+        (the slots themselves, or the ragged scheduler's pages)."""
         C = self.chunk_len
         tokens = staged[:, :C]
         lengths = staged[:, C]
@@ -159,12 +195,19 @@ class SlotScheduler:
         # refill reset: zero the slot's carried state and re-init its pool
         # row BEFORE the chunk runs, so nothing leaks across documents
         states = tuple((torch.where(reset, 0, h), torch.where(reset, 0, c))
-                       for h, c in self._states)
+                       for h, c in states)
         pool = torch.where(reset, self._pack_pool(
-            self.engine._init_pool_state(1)), self._pool)
-        raw, self._states = self.engine.encoder(tokens, states)
-        self._pool = self._pack_pool(self.engine._accumulate_pool(
+            self.engine._init_pool_state(1)), pool)
+        kw = ({"valid_lens": lengths, "t_live": self._t_live}
+              if self._length_aware else {})
+        raw, new_states = self.engine.encoder(tokens, states, **kw)
+        return new_states, self._pack_pool(self.engine._accumulate_pool(
             raw, lengths, self._unpack_pool(pool)))
+
+    def _step(self, staged: torch.Tensor) -> None:
+        """One ``(B, chunk_len)`` step on the device."""
+        self._states, self._pool = self._run_chunk(staged, self._states,
+                                                   self._pool)
 
     # -- scheduling ------------------------------------------------------------
 
@@ -226,6 +269,9 @@ class SlotScheduler:
             return False
         self.tokens_stepped += self.batch_size * self.chunk_len
         self.tokens_valid += int(staged[:, self.chunk_len].sum())
+        self._t_live = int(staged[:, self.chunk_len].max())
+        self.recurrence_steps += (self._t_live if self._length_aware
+                                  else self.chunk_len)
         if self.registry is not None:
             self.registry.observe("slot_occupancy", occupied)
             self.registry.set("slot_refill_queue_depth", len(self._queue))
@@ -300,3 +346,143 @@ class SlotScheduler:
             except Exception:
                 self.reset()
                 raise
+
+
+class RaggedSlotScheduler(SlotScheduler):
+    """Ragged paged slot memory: length-aware continuous batching.
+
+    Twin of the JAX package's ``RaggedSlotScheduler``, with the dense
+    scheduler's API and invariants (one step shape, reset on refill,
+    per-document completion, one packed staging block per step) and three
+    changes:
+
+    * the step is ``(batch, page_len)`` with ``page_len = max(8,
+      chunk_len // 4)`` (16 for the 64-token dense chunk), so a row's cost
+      tracks its own token count;
+    * carried LSTM state and pool rows live in page arenas of ``n_pages =
+      2 * batch`` rows; the staging block carries one more int32 column,
+      each slot's page, and the step gathers and scatters state through
+      that page table;
+    * finishing a document retires its page instead of gathering it: the
+      page stays untouched in the arena (the step writes only the pages
+      of the slots in the table) until one batched ``index_select`` takes
+      every retired page, when the free list runs dry or ``materialize``
+      needs rows.
+
+    Every step hands the staged lengths and their host maximum to the
+    encoder, whose layers run K2 (K3 under int8).
+    """
+
+    _STAGING_EXTRA = 3  # [length, refill-reset, state page]
+
+    def __init__(self, engine, registry=None):
+        # B pages in the table + B retired awaiting their gather: at most
+        # one finish per slot per step, so a flush always frees enough
+        self.n_pages = 2 * engine.batch_size
+        dense = engine._bucket_for_static(64, engine.buckets)
+        super().__init__(engine, registry=registry,
+                         chunk_len=max(8, dense // 4))
+        self.page_len = self.chunk_len
+        self._length_aware = True
+
+    def _init_device_state(self) -> None:
+        B = self.batch_size
+        # slot s starts on page s; the other half feeds the free list
+        self._slot_page = np.arange(B, dtype=np.int64)
+        self._free_pages: Deque[int] = deque(range(B, self.n_pages))
+        self._retired: List[Tuple[_Ticket, int]] = []
+        self._states = init_lstm_states(self.engine.config, self.n_pages,
+                                        self.device)
+        self._pool = self._pack_pool(
+            self.engine._init_pool_state(self.n_pages))
+
+    # -- pages -----------------------------------------------------------------
+
+    def pages_free(self) -> int:
+        """Free-list depth (a host int)."""
+        return len(self._free_pages)
+
+    def pages_live(self) -> int:
+        """Pages holding live document state: occupied slots' pages plus
+        retired pages awaiting their gather."""
+        return (sum(doc is not None for doc in self._slot_doc)
+                + len(self._retired))
+
+    def _export_page_gauges(self) -> None:
+        if self.registry is None:
+            return
+        self.registry.set("slots_pages_free", self.pages_free())
+        self.registry.set("slots_pages_live", self.pages_live())
+
+    def bind_registry(self, registry) -> None:
+        super().bind_registry(registry)
+        if registry is None:
+            return
+        registry.gauge(
+            "slots_pages_free",
+            "ragged state-arena free-list depth (pages not bound to any "
+            "slot and not awaiting emit)")
+        registry.gauge(
+            "slots_pages_live",
+            "ragged state-arena pages holding live document state "
+            "(occupied slots + retired awaiting emit)")
+        self._export_page_gauges()
+
+    # -- step ----------------------------------------------------------------
+
+    def _step(self, staged: torch.Tensor) -> None:
+        """Gather the slots' pages, run the chunk, scatter them back. The
+        pages in the table are distinct, and retired pages are never in
+        it, so the in-place scatter leaves them as they were."""
+        pages = staged[:, self.chunk_len + 2].long()
+        states = tuple((h.index_select(0, pages), c.index_select(0, pages))
+                       for h, c in self._states)
+        new_states, pool = self._run_chunk(
+            staged, states, self._pool.index_select(0, pages))
+        for (h, c), (nh, nc) in zip(self._states, new_states):
+            h.index_copy_(0, pages, nh)
+            c.index_copy_(0, pages, nc)
+        self._pool.index_copy_(0, pages, pool)
+
+    def _refill(self, staged: np.ndarray) -> int:
+        occupied = super()._refill(staged)
+        # the page table rides the same staging block: no second h2d copy
+        staged[:, self.chunk_len + 2] = self._slot_page
+        return occupied
+
+    def _emit_finished(self) -> None:
+        """Retire finished slots' pages (no device work here): the slot
+        moves to a fresh page, and the finished one waits, untouched, for
+        :meth:`_flush_retired`."""
+        for s in range(self.batch_size):
+            doc = self._slot_doc[s]
+            if doc is None or self._slot_off[s] + self.chunk_len < len(doc.ids):
+                continue
+            if not self._free_pages:
+                self._flush_retired()  # recycle before we run dry
+            self._retired.append((doc, int(self._slot_page[s])))
+            self._slot_page[s] = self._free_pages.popleft()
+            self._slot_doc[s] = None
+            self.docs_done += 1
+            if self.registry is not None:
+                self.registry.observe("slot_steps_per_doc", doc.steps)
+        self._export_page_gauges()
+
+    def _flush_retired(self) -> None:
+        """One device gather of every retired page's pool row, then the
+        pages go back to the free list. The gather is queued on the stream
+        before any later step can write a recycled page."""
+        if not self._retired:
+            return
+        idx = torch.tensor([p for _, p in self._retired],
+                           dtype=torch.long).to(self.device)
+        gathered = self._pool.index_select(0, idx)
+        for k, (doc, page) in enumerate(self._retired):
+            doc.gathered, doc.row = gathered, k
+            self._free_pages.append(page)
+        self._retired.clear()
+        self._export_page_gauges()
+
+    def materialize(self, tickets: Sequence[_Ticket]) -> np.ndarray:
+        self._flush_retired()
+        return super().materialize(tickets)

@@ -2,9 +2,16 @@
 
 Port of the deterministic LSTM branch of the JAX package's
 ``models/awd_lstm.py::AWDLSTMEncoder``: embedding gather, then N stacked
-LSTM layers, each an input projection plus the fused recurrence
-(``ops/fused_lstm.py``, kernel K1 on CUDA). Dropout, DropConnect and the
-sequence-parallel axis are training concerns and are not ported here.
+LSTM layers, each an input projection plus a fused recurrence from
+``ops/fused_lstm.py``, routed as the JAX encoder routes its Pallas
+branches:
+
+* ``precision="int8"``: K3 (int8 ``W_hh``, per-row scales), always;
+* f32/bf16 weights with ``valid_lens``: K2 (the ragged scheduler);
+* f32/bf16 weights without: K1 (the dense ``slots`` and ``groups`` paths).
+
+Dropout, DropConnect and the sequence-parallel axis are training concerns
+and are not ported here.
 """
 
 from __future__ import annotations
@@ -16,8 +23,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from code_intelligence_tpu_torch.ops.fused_lstm import lstm_layer_fused
+from code_intelligence_tpu_torch.ops.fused_lstm import (
+    lstm_layer_fused,
+    lstm_layer_fused_ragged,
+    lstm_layer_fused_ragged_int8,
+)
 from code_intelligence_tpu_torch.ops.lstm import LSTMState, lstm_layer
+from code_intelligence_tpu_torch.ops.quantize import SCALE_SUFFIX
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,7 +40,8 @@ class AWDLSTMConfig:
 
     ``lstm_use_pallas`` is accepted and ignored: the port has one kernel
     path on CUDA. The dropout rates are kept for the round trip and unused
-    at inference.
+    at inference. ``precision="int8"`` is the serve-path weight precision
+    that the engine sets when it quantizes at load (``ops/quantize.py``).
     """
 
     vocab_size: int
@@ -55,11 +68,7 @@ class AWDLSTMConfig:
             raise NotImplementedError(
                 "qrnn=True is not ported yet (ROADMAP.md queue 1 item 10, "
                 "with kernels K6-K8)")
-        if self.precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' is not ported yet (ROADMAP.md queue 1 "
-                "item 6, with kernel K3)")
-        if self.precision != "f32":
+        if self.precision not in ("f32", "int8"):
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.dtype not in _DTYPES:
             raise ValueError(
@@ -114,9 +123,12 @@ class AWDLSTMEncoder(nn.Module):
     """Embedding + stacked LSTM layers, frozen, in the config's dtype.
 
     Parameter names are the export's flat keys (``embedding``,
-    ``lstm_{i}_w_ih|w_hh|bias``). ``plain=True`` runs each recurrence
-    through K1's plain PyTorch version on any device; it is the reference
-    the kernel path is held against on the card.
+    ``lstm_{i}_w_ih|w_hh|bias``). Under ``precision="int8"`` the embedding
+    and the layers' ``w_ih`` and ``w_hh`` are int8 codes, each with an f32
+    ``<name>_scale`` sibling (``ops/quantize.py``); biases stay in the
+    compute dtype. ``plain=True`` runs each recurrence through its kernel's
+    plain PyTorch version on any device; it is the reference the kernel
+    path is held against on the card.
     """
 
     def __init__(self, config: AWDLSTMConfig, device="cpu",
@@ -124,30 +136,71 @@ class AWDLSTMEncoder(nn.Module):
         super().__init__()
         self.config = config
         self.plain = plain
-        kw = {"dtype": config.torch_dtype, "device": device}
+        self.int8 = config.precision == "int8"
 
-        def param(*shape):
-            return nn.Parameter(torch.empty(shape, **kw), requires_grad=False)
+        def param(*shape, dtype=config.torch_dtype):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                                requires_grad=False)
 
-        self.embedding = param(config.vocab_size, config.emb_sz)
+        wdtype = torch.int8 if self.int8 else config.torch_dtype
+        self.embedding = param(config.vocab_size, config.emb_sz, dtype=wdtype)
+        if self.int8:
+            setattr(self, "embedding" + SCALE_SUFFIX,
+                    param(config.emb_sz, dtype=torch.float32))
         for li in range(config.n_layers):
             H, in_dim = config.layer_size(li), config.layer_in_dim(li)
-            setattr(self, f"lstm_{li}_w_ih", param(4 * H, in_dim))
-            setattr(self, f"lstm_{li}_w_hh", param(4 * H, H))
+            setattr(self, f"lstm_{li}_w_ih", param(4 * H, in_dim, dtype=wdtype))
+            setattr(self, f"lstm_{li}_w_hh", param(4 * H, H, dtype=wdtype))
             setattr(self, f"lstm_{li}_bias", param(4 * H))
+            if self.int8:
+                for w in ("w_ih", "w_hh"):
+                    setattr(self, f"lstm_{li}_{w}{SCALE_SUFFIX}",
+                            param(4 * H, dtype=torch.float32))
 
-    def forward(self, tokens: torch.Tensor,
-                states: Tuple[LSTMState, ...]):
+    def forward(self, tokens: torch.Tensor, states: Tuple[LSTMState, ...],
+                valid_lens: Optional[torch.Tensor] = None,
+                t_live: Optional[int] = None):
         """``tokens (B, T)`` ids -> ``(raw_output (B, T, emb_sz),
-        new_states)``."""
-        layer = lstm_layer if self.plain else lstm_layer_fused
+        new_states)``.
+
+        ``valid_lens (B,)`` marks each row's live prefix: the layers run
+        the length-aware kernels (K2, or K3 under int8), whose outputs are
+        0 past it and whose carry freezes there. ``t_live``, a host int at
+        least ``min(T, max(valid_lens))``, lets them launch only the live
+        steps; the caller knows the lengths on the host, so no layer
+        reads ``valid_lens`` back. An int8 encoder without ``valid_lens``
+        treats every token as live."""
+        cfg = self.config
+        dtype = cfg.torch_dtype
+        B, T = tokens.shape
         x = self.embedding[tokens.long()]  # (B, T, E)
+        if self.int8:
+            # dequantize after the gather: only the (B, T, E) activation,
+            # never the whole table
+            x = x.to(dtype) * getattr(
+                self, "embedding" + SCALE_SUFFIX).to(dtype)
+            if valid_lens is None:
+                valid_lens = torch.full((B,), T, dtype=torch.int32,
+                                        device=tokens.device)
+        if valid_lens is not None:
+            valid_lens = valid_lens.to(torch.int32).contiguous()
         new_states = []
-        for li in range(self.config.n_layers):
-            x, st = layer(
-                x, states[li],
-                getattr(self, f"lstm_{li}_w_ih"),
-                getattr(self, f"lstm_{li}_w_hh"),
-                getattr(self, f"lstm_{li}_bias"))
+        for li in range(cfg.n_layers):
+            p = f"lstm_{li}_"
+            w_ih, w_hh, bias = (getattr(self, p + n)
+                                for n in ("w_ih", "w_hh", "bias"))
+            if self.int8:
+                ih_scale, hh_scale = (getattr(self, p + n + SCALE_SUFFIX)
+                                      for n in ("w_ih", "w_hh"))
+                x, st = lstm_layer_fused_ragged_int8(
+                    x, states[li], w_ih, ih_scale, w_hh, hh_scale, bias,
+                    valid_lens, t_live, plain=self.plain)
+            elif valid_lens is not None:
+                x, st = lstm_layer_fused_ragged(
+                    x, states[li], w_ih, w_hh, bias, valid_lens, t_live,
+                    plain=self.plain)
+            else:
+                layer = lstm_layer if self.plain else lstm_layer_fused
+                x, st = layer(x, states[li], w_ih, w_hh, bias)
             new_states.append(st)
         return x, tuple(new_states)

@@ -10,16 +10,22 @@ port's engine:
   404.
 * ``GET /healthz`` gives 200 once the model is loaded and warmed.
 * ``GET /metrics`` gives Prometheus text: request counts by route and
-  code, request latency, and the slot scheduler's gauges.
+  code, request latency, and the scheduler's gauges (with
+  ``serve_precision_int8`` and ``encoder_weight_bytes``).
 
-Device work is serialized by one model lock around
-``engine.embed_issues(..., scheduler="slots")``. The micro-batcher,
+``--scheduler`` picks the batching path (``slots``, the default;
+``ragged``, the paged length-aware step; ``groups``) and ``--precision``
+the weight precision (``f32``, or ``int8``, quantized at load), as in the
+JAX server. Device work is serialized by one model lock around
+``engine.embed_issues``. The micro-batcher,
 canary rollout, embedding cache, SLO tracking, deadlines and load
 shedding, profiling, the delivery loop and the memory ledger are not
 ported yet.
 
     python -m code_intelligence_tpu_torch.serving.server --model_dir D \
-        [--device cuda|cpu] [--batch_size 32] [--port 8080] [--auth_token T]
+        [--device cuda|cpu] [--scheduler slots|groups|ragged] \
+        [--precision f32|int8] [--batch_size 32] [--port 8080] \
+        [--auth_token T]
 """
 
 from __future__ import annotations
@@ -41,23 +47,27 @@ from code_intelligence_tpu_torch.utils.metrics import Registry
 
 log = logging.getLogger(__name__)
 
-SCHEDULER = "slots"
+SCHEDULERS = ("slots", "groups", "ragged")
 
 
 class EmbeddingServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, addr, engine: InferenceEngine,
-                 auth_token: Optional[str] = None):
+                 auth_token: Optional[str] = None, scheduler: str = "slots"):
         self.engine = engine
         self.auth_token = auth_token
+        self.scheduler = engine._check_scheduler(scheduler)
         self.model_lock = threading.Lock()
         self.metrics = Registry()
         self.metrics.counter("embedding_requests_total",
                              "POST requests by route and status code")
         self.metrics.histogram("embedding_request_seconds",
                                "POST request latency")
-        engine.slot_scheduler(registry=self.metrics)
+        if scheduler == "slots":
+            engine.slot_scheduler(registry=self.metrics)
+        elif scheduler == "ragged":
+            engine.ragged_scheduler(registry=self.metrics)
         super().__init__(addr, _Handler)
 
     @property
@@ -67,7 +77,8 @@ class EmbeddingServer(ThreadingHTTPServer):
     def embed(self, title: str, body: str) -> np.ndarray:
         with self.model_lock:
             return self.engine.embed_issues(
-                [{"title": title, "body": body}], scheduler=SCHEDULER)[0]
+                [{"title": title, "body": body}],
+                scheduler=self.scheduler)[0]
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -148,13 +159,17 @@ class _Handler(BaseHTTPRequestHandler):
 
 def build_server(model_dir, device="cuda", batch_size: int = 32,
                  host: str = "0.0.0.0", port: int = 8080,
-                 auth_token: Optional[str] = None) -> EmbeddingServer:
-    """Load the export, warm the serve path up, and bind the listener
-    (``port=0`` picks a free one). The caller runs ``serve_forever``."""
+                 auth_token: Optional[str] = None, scheduler: str = "slots",
+                 precision: str = "f32") -> EmbeddingServer:
+    """Load the export (quantized at load under ``precision="int8"``), warm
+    the serve path up, and bind the listener (``port=0`` picks a free
+    one). The caller runs ``serve_forever``."""
     engine = InferenceEngine.from_export(model_dir, batch_size=batch_size,
-                                         scheduler=SCHEDULER, device=device)
+                                         scheduler=scheduler, device=device,
+                                         precision=precision)
     engine.warmup()
-    return EmbeddingServer((host, port), engine, auth_token=auth_token)
+    return EmbeddingServer((host, port), engine, auth_token=auth_token,
+                           scheduler=scheduler)
 
 
 def main(argv=None) -> None:
@@ -162,6 +177,14 @@ def main(argv=None) -> None:
         description="Serve POST /text embeddings from an export directory.")
     p.add_argument("--model_dir", required=True, help="export directory")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--scheduler", default="slots", choices=SCHEDULERS,
+                   help="slots = continuous batching in (B, 64) steps; "
+                        "ragged = the same loop with paged state and a "
+                        "length-aware (B, 16) step; groups = the "
+                        "length-sorted lock-step path")
+    p.add_argument("--precision", default="f32", choices=("f32", "int8"),
+                   help="int8 quantizes the encoder weights at load "
+                        "(per-channel symmetric); the export stays f32")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
@@ -170,7 +193,8 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     srv = build_server(args.model_dir, device=args.device,
                        batch_size=args.batch_size, host=args.host,
-                       port=args.port, auth_token=args.auth_token)
+                       port=args.port, auth_token=args.auth_token,
+                       scheduler=args.scheduler, precision=args.precision)
     log.info("embedding server listening on %s:%d", args.host, srv.port)
     try:
         srv.serve_forever()

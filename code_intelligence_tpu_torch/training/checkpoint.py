@@ -53,8 +53,10 @@ def params_from_numpy(params: dict) -> Dict[str, torch.Tensor]:
 
     Takes the flat encoder dict (``{"embedding": ..., "lstm_0_w_ih": ...}``)
     or a tree that holds it under ``encoder`` or ``params``, as the JAX
-    engine does. Tensors come out f32 on the CPU; ``load_state_dict``
-    casts them to the encoder's dtype and device."""
+    engine does. Tensors come out on the CPU: int8 arrays (the codes of a
+    quantized encoder, ``ops/quantize.py``) stay int8, everything else,
+    their f32 scales included, comes out f32; ``load_state_dict`` casts
+    them to the encoder's dtypes and device."""
     if "embedding" in params:
         enc = params
     elif "encoder" in params:
@@ -65,5 +67,9 @@ def params_from_numpy(params: dict) -> Dict[str, torch.Tensor]:
     else:
         raise ValueError("unrecognized params tree: no 'embedding', "
                          "'encoder' or 'params' key")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in enc.items()}
+    out = {}
+    for k, v in enc.items():
+        a = np.asarray(v)
+        out[k] = torch.from_numpy(np.array(
+            a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+    return out

@@ -63,3 +63,90 @@ def test_k1_zero_steps_and_non_contiguous(cuda_device):
     x, w, h, c = _inputs(3, 4, 8, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         K1.fused_lstm_forward(x, w, h.t().contiguous().t(), c)
+
+
+def _valid(T, B, device):
+    """0, 1, mid-step and full, cycling over the rows."""
+    return torch.tensor([(0, 1, T // 2, T)[b % 4] for b in range(B)],
+                        dtype=torch.int32, device=device)
+
+
+def _ragged_args(T, B, H, device, dtype, int8):
+    from code_intelligence_tpu_torch.ops.quantize import quantize_symmetric
+
+    x, w, h, c = _inputs(T, B, H, device, dtype)
+    valid = _valid(T, B, device)
+    if not int8:
+        return [x, w, h, c, valid]
+    q, s = quantize_symmetric(w.float().cpu().numpy(), axis=0)
+    return [x, torch.from_numpy(q).to(device), torch.from_numpy(s).to(device),
+            h, c, valid]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (3, 33, 130), (1, 1, 8),
+                                   (16, 32, 2500), (16, 32, 800)])
+def test_ragged_kernels_match_plain(cuda_device, kernel, dtype, T, B, H):
+    int8 = kernel == "K3"
+    fn, plain, counter = (
+        (K1.fused_lstm_forward_ragged_int8,
+         K1.fused_lstm_forward_ragged_int8_plain, K1.ragged_int8_launches)
+        if int8 else
+        (K1.fused_lstm_forward_ragged, K1.fused_lstm_forward_ragged_plain,
+         K1.ragged_launches))
+    args = _ragged_args(T, B, H, cuda_device, dtype, int8)
+    t_live = int(args[-1].max())
+    before = counter.count
+    out, (h, c) = fn(*args, t_live=t_live)
+    torch.cuda.synchronize()
+    assert counter.count == before + t_live  # one launch per live step
+    ref_out, (ref_h, ref_c) = plain(*args)
+    dead = torch.arange(T, device=cuda_device)[:, None] >= args[-1][None, :]
+    assert torch.all(out[dead] == 0)
+    for got, want in ((out, ref_out), (h, ref_h), (c, ref_c)):
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_dead_steps_and_raises(cuda_device):
+    x, w, h, c = _inputs(4, 3, 8, cuda_device, torch.float32)
+    valid = torch.zeros((3,), dtype=torch.int32, device=cuda_device)
+    out, (hT, cT) = K1.fused_lstm_forward_ragged(x, w, h, c, valid, t_live=0)
+    assert torch.all(out == 0)
+    assert torch.equal(hT, h) and torch.equal(cT, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.fused_lstm_forward_ragged(x, w, h.t().contiguous().t(), c, valid)
+    with pytest.raises(ValueError, match="valid_lens"):
+        K1.fused_lstm_forward_ragged(x, w, h, c, valid.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler,precision",
+                         [("ragged", "f32"), ("ragged", "int8"),
+                          ("slots", "int8"), ("groups", "int8")])
+def test_engines_match_plain_engine(cuda_device, tmp_path, scheduler,
+                                    precision):
+    from code_intelligence_tpu_torch.inference.engine import InferenceEngine
+    from code_intelligence_tpu_torch.models import (
+        AWDLSTMConfig, random_encoder_arrays)
+    from code_intelligence_tpu_torch.text import SPECIALS, Vocab
+    from code_intelligence_tpu_torch.training.checkpoint import export_encoder
+
+    cfg = AWDLSTMConfig(vocab_size=200, emb_sz=16, n_hid=40, n_layers=3)
+    export_encoder(tmp_path, random_encoder_arrays(cfg, seed=1), cfg,
+                   Vocab(SPECIALS + [f"w{i}" for i in range(190)]))
+    rng = np.random.RandomState(0)
+    seqs = [rng.randint(5, 199, n).astype(np.int32)
+            for n in (1, 8, 9, 16, 17, 40, 3, 70, 0, 5, 12, 33)]
+    kw = {"buckets": (8, 16), "batch_size": 4, "precision": precision,
+          "device": "cuda"}
+    got = InferenceEngine.from_export(tmp_path, **kw).embed_ids_batch(
+        seqs, scheduler=scheduler)
+    want = InferenceEngine.from_export(tmp_path, plain=True, **kw) \
+        .embed_ids_batch(seqs, scheduler=scheduler)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

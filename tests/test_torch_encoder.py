@@ -93,8 +93,10 @@ def test_config_reads_every_jax_key(tmp_path):
     assert [cfg.layer_size(i) for i in range(2)] == [12, 8]
     with pytest.raises(NotImplementedError, match="item 10"):
         AWDLSTMConfig(**{**raw, "qrnn": True})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        AWDLSTMConfig(**{**raw, "precision": "int8"})
+    # int8 is the engine's serve precision now; an unknown one raises
+    assert AWDLSTMConfig(**{**raw, "precision": "int8"}).precision == "int8"
+    with pytest.raises(ValueError, match="precision"):
+        AWDLSTMConfig(**{**raw, "precision": "int4"})
     with pytest.raises(ValueError, match="float16"):
         AWDLSTMConfig(**{**raw, "dtype": "float16"})
     # lstm_use_pallas is accepted and ignored

@@ -34,8 +34,10 @@ def test_port_and_chip_smoke_import_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     # the walk really covered the slice's modules
-    for mod in ("ops.fused_lstm", "ops._build", "inference.slots",
-                "serving.server", "training.checkpoint", "text.tokenizer"):
+    for mod in ("ops.fused_lstm", "ops._build", "ops.quantize",
+                "inference.slots", "inference.ragged_check",
+                "inference.int8_check", "serving.server",
+                "training.checkpoint", "text.tokenizer"):
         assert f"code_intelligence_tpu_torch.{mod}" in out["modules"]
 
 
@@ -44,5 +46,8 @@ def test_kernel_source_ships_with_the_package():
     text = src.read_text()
     # the recurrent product is the kernel's own loop, not a library call
     assert "lstm_step" in text and "fmaf" in text
+    for entry in ("fused_lstm_forward", "fused_lstm_forward_ragged",
+                  "fused_lstm_forward_ragged_int8"):  # K1, K2, K3
+        assert f"int {entry}(" in text
     for lib in ("cublas", "cutlass", "cudnn"):
         assert lib not in text.lower()

@@ -44,9 +44,12 @@ def test_engine_matches_jax_on_mixed_lengths(engine, jax_engine, scheduler):
 
 
 def test_embed_issues_match_jax_slots(engine, jax_engine):
+    # the port's slots path against the JAX groups path: the JAX slot
+    # scheduler fails at random in shared sessions (ROADMAP "Reference
+    # health"), so it is no reference
     issues = [{"title": d[:20], "body": d} for d in MARKDOWN_DOCS]
     issues.append({"title": "w9", "body": "w10 " * 60})  # > largest bucket
-    want = jax_engine.embed_issues(issues, scheduler="slots")
+    want = jax_engine.embed_issues(issues, scheduler="groups")
     got = engine.embed_issues(issues, scheduler="slots")
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     np.testing.assert_allclose(engine.embed_issues(issues, truncate=5),
@@ -91,9 +94,16 @@ def test_scheduler_failure_heals(engine, monkeypatch):
         engine.embed_ids_batch(seqs, scheduler="groups"), atol=ATOL, rtol=0)
 
 
-def test_ragged_scheduler_is_not_ported(engine):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.embed_ids_batch(mixed_seqs(n=2), scheduler="ragged")
+def test_ragged_scheduler_is_not_ported(engine, jax_engine):
+    # the name dates from when the port refused the ragged scheduler; the
+    # same entry point now serves it
+    seqs = mixed_seqs(n=2)
+    np.testing.assert_allclose(
+        engine.embed_ids_batch(seqs, scheduler="ragged"),
+        jax_engine.embed_ids_batch(seqs, scheduler="groups"), atol=ATOL,
+        rtol=0)
+    with pytest.raises(ValueError, match="scheduler must be"):
+        engine.embed_ids_batch(seqs, scheduler="paged")
 
 
 @pytest.fixture(scope="module")
