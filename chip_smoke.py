@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path on one NVIDIA card, and check it.
+"""Drive the PyTorch port's serve and training paths on one NVIDIA card,
+and check them.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,11 @@ on failure (exit code 1, and no result line):
    serve paths give it, within the tolerances below: K1 at B=32, T=64
    (the slot step), H=2500 and H=800; K2 (ragged) and K3 (ragged, int8
    W_hh) at B=32, T=16 (the ragged step), with valid lengths of 0, 1,
-   mid-step and full, and a case whose second batch tile is all dead.
+   mid-step and full, and a case whose second batch tile is all dead;
+   K4 (forward with the training residuals) and K5 (its adjoint) at
+   T=7/B=5/H=40 and at the training shapes T=67, B=104, H=2500 and H=800,
+   and one layer's gradients through K4/K5 against autograd through the
+   plain loop (T=67, B=104, H=800).
 4. Three serve paths on one flagship-width export (60,000-token vocab,
    emb 800, hidden 2500/2500/2500/800, bf16) made from a numpy seed. For
    each, the port's server on the card answers POST /text for the same 8
@@ -33,13 +38,32 @@ on failure (exit code 1, and no result line):
    * ``--scheduler ragged --precision int8`` (K3); its weight footprint
      must be at least 3x smaller than f32, and its largest difference
      from the bf16 embeddings is printed.
-5. Timing with CUDA events, beside the least time the card could take
+5. Training at flagship width (bf16 compute, f32 master weights, B=104,
+   bptt 67, the reference's dropouts) on a synthetic corpus from a numpy
+   seed: a 60,000-token vocab and a stream cycling through 16 tokens with
+   10% noise, six training windows and one validation window. First, the
+   first window's loss and every parameter's gradient on the kernels
+   against the plain path on the same weights and masks. Then, with every
+   launch counter zeroed just before, the port's training CLI
+   (``training/cli.py``, three windows per host read): every window's
+   loss must be finite and the last lower than the first, K4 must have
+   run ``n_layers x 67`` launches a window, K5 ``n_layers x 68`` (a launch
+   per step and one for dh0), K1 ``n_layers x 67`` for the one
+   validation window, and K2, K3 none. The kernel-vs-plain window check
+   runs again on the trained checkpoint, where the loss depends on the
+   recurrence. The port's server then answers POST /text from the run's
+   ``encoder_export/`` with 2400 finite floats.
+6. Timing with CUDA events, beside the least time the card could take
    and a library yardstick the port never calls: K1 at B=32, T=512,
    H=2500 in bf16 against cuDNN's ``torch.nn.LSTM`` on the same layer (it
    includes the input projection); K2 and K3 at the ragged step (B=32,
    T=16, H=2500, bf16 activations, K3 with int8 W_hh) with mixed valid
    lengths, K2 against cuDNN's LSTM over a ``pack_padded_sequence`` of the
    same lengths. K3 has no single PyTorch call for the same function.
+   K4 and K5 at T=67, B=104, H=2500, bf16, against cuDNN's LSTM forward
+   and its backward to the initial state only (no weight gradients; cuDNN
+   still computes the input gradient), timed apart; ms per training
+   window and tokens/s from the CLI run's second host read.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -50,6 +74,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -60,17 +85,30 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from code_intelligence_tpu_torch.data import (
+    CorpusWriter,
+    LMStreamLoader,
+    TokenCorpus,
+)
 from code_intelligence_tpu_torch.models import (
     AWDLSTMConfig,
+    AWDLSTMLM,
+    draw_dropout_masks,
     random_encoder_arrays,
 )
 from code_intelligence_tpu_torch.inference.engine import InferenceEngine
 from code_intelligence_tpu_torch.ops import _build
 from code_intelligence_tpu_torch.ops import fused_lstm as K1
+from code_intelligence_tpu_torch.ops.lstm import lstm_layer
 from code_intelligence_tpu_torch.ops.quantize import quantize_symmetric
 from code_intelligence_tpu_torch.serving.server import build_server
 from code_intelligence_tpu_torch.text import SPECIALS, Tokenizer, Vocab
-from code_intelligence_tpu_torch.training.checkpoint import export_encoder
+from code_intelligence_tpu_torch.training import cli as train_cli
+from code_intelligence_tpu_torch.training.checkpoint import (
+    export_encoder,
+    restore_checkpoint,
+)
+from code_intelligence_tpu_torch.training.loop import LMTrainer, TrainConfig
 
 SEED = 0
 REPO = Path(__file__).resolve().parent
@@ -288,7 +326,8 @@ def post(port: int, issue: dict):
 PATH_KERNEL = {("slots", "f32"): "K1", ("ragged", "f32"): "K2",
                ("ragged", "int8"): "K3"}
 COUNTERS = {"K1": K1.launches, "K2": K1.ragged_launches,
-            "K3": K1.ragged_int8_launches}
+            "K3": K1.ragged_int8_launches, "K4": K1.gates_launches,
+            "K5": K1.backward_launches}
 
 
 def serve_phase(model_dir: Path, docs, scheduler: str,
@@ -458,6 +497,355 @@ def packed_lstm_ms(T, B, H, dtype, valid):
         return None
 
 
+# ---------------------------------------------------------------------------
+# The training slice: K4 and K5, and LM training at flagship width
+# ---------------------------------------------------------------------------
+
+# K4 vs plain: K1_ATOL (the same loop and rounding). K5 vs plain, as
+# (atol, rtol): in bf16 dz is rounded to bf16 every step and feeds the next
+# step's product, so the summation orders can leave a value a few bf16
+# ulps apart (2^-7 relative each) at any magnitude.
+K5_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 3e-2)}
+# Gradients on the kernels vs autograd through the plain loop, by relative
+# Frobenius norm, and the window's loss by relative difference. f32: only
+# the summation order differs. bf16: the plain loop's autograd rounds its
+# backward to bf16 where K5 carries f32, and both round h, c, the gates
+# and dz to bf16 (2^-8) at every one of the 67 steps of four layers.
+# The gradient bound is the real check. At init the loss is about ln(V)
+# whatever the layers compute, so the loss bound only bites on the window
+# checked after training, where the loss depends on the recurrence.
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+LOSS_RTOL = 1e-2
+
+TRAIN_BS, TRAIN_BPTT = 104, 67     # the JAX CLI's defaults
+TRAIN_WINDOWS, PER_DISPATCH = 6, 3  # two host reads of the metrics
+TRAIN_LR = 3e-3                    # one-cycle peak 6e-3 over 6 windows
+PERIOD = 16                        # the synthetic corpus's token cycle
+
+
+def k4_bound_ms(T, B, H, dtype):
+    """K1's traffic plus the residuals written (gates, c_prev); the same
+    recurrent product."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    elems = (T * B * 4 * H + 4 * H * H + 2 * B * H     # x_proj, W_hh, h0, c0
+             + T * B * H + T * B * 4 * H + T * B * H   # out, gates, c_prev
+             + 2 * B * H)                              # h_T, c_T
+    return _bound(elems * item, 2.0 * T * B * 4 * H * H, dtype)
+
+
+def k5_bound_ms(T, B, H, dtype):
+    """gates, c_prev, d_out, W_hh, dh_T, dc_T in; dz, dh0, dc0 out; T
+    products dz[t] @ W_hh."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    elems = (T * B * 4 * H + 2 * T * B * H + 4 * H * H + 2 * B * H
+             + T * B * 4 * H + 2 * B * H)
+    return _bound(elems * item, 2.0 * T * B * 4 * H * H, dtype)
+
+
+def _bound(n_bytes, n_ops, dtype):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def k5_inputs(T, B, H, dtype, seed=SEED):
+    """K4's residuals (from K4 itself) and seeded cotangents."""
+    x_proj, w_hh, h0, c0 = k1_inputs(T, B, H, dtype, seed)
+    _, (gates, c_prev), _ = K1.fused_lstm_forward(x_proj, w_hh, h0, c0,
+                                                  with_gates=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    d_out, dh, dc = (torch.randn(s, generator=g, device="cuda")
+                     for s in ((T, B, H), (B, H), (B, H)))
+    return [gates, c_prev, d_out, w_hh, dh, dc]
+
+
+def check_k4(T, B, H, dtype) -> float:
+    args = k1_inputs(T, B, H, dtype)
+    out, (gates, c_prev), (h, c) = K1.fused_lstm_forward(*args,
+                                                         with_gates=True)
+    torch.cuda.synchronize()
+    ref = K1.fused_lstm_forward_plain(*args, with_gates=True)
+    got, want = (out, gates, c_prev, h, c), (ref[0], *ref[1], *ref[2])
+    if not all(torch.isfinite(t.float()).all().item() for t in got):
+        raise AssertionError(f"K4 gave non-finite values at T={T} B={B} "
+                             f"H={H}")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    if err > K1_ATOL[dtype]:
+        raise AssertionError(f"K4 vs plain at T={T} B={B} H={H} {dtype}: "
+                             f"max |diff| {err} > {K1_ATOL[dtype]}")
+    return err
+
+
+def check_k5(T, B, H, dtype) -> float:
+    args = k5_inputs(T, B, H, dtype)
+    got = K1.fused_lstm_backward(*args)
+    torch.cuda.synchronize()
+    want = K1.fused_lstm_backward_plain(*args)
+    atol, rtol = K5_TOL[dtype]
+    for a, b in zip(got, want):
+        if not torch.isfinite(a.float()).all().item():
+            raise AssertionError(f"K5 gave non-finite values at T={T} B={B} "
+                                 f"H={H}")
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_layer_grads(T, B, n_in, H, dtype) -> float:
+    """``lstm_layer_fused`` (K4 forward, K5 backward) against autograd
+    through the plain loop (``ops.lstm.lstm_layer``); the largest relative
+    error over the six gradients."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    s = 1.0 / H ** 0.5
+    shapes = {"x": (B, T, n_in), "h0": (B, H), "c0": (B, H),
+              "w_ih": (4 * H, n_in), "w_hh": (4 * H, H), "bias": (4 * H,)}
+    base = {k: ((torch.rand(v, generator=g, device="cuda") * 2 - 1) * s)
+            .to(dtype) for k, v in shapes.items()}
+    cot = [torch.randn(v, generator=g, device="cuda").to(dtype)
+           for v in ((B, T, H), (B, H), (B, H))]
+    grads = []
+    for layer in (K1.lstm_layer_fused, lstm_layer):
+        t = {k: v.clone().requires_grad_() for k, v in base.items()}
+        out, (h, c) = layer(t["x"], (t["h0"], t["c0"]), t["w_ih"],
+                            t["w_hh"], t["bias"])
+        torch.autograd.backward((out, h, c), cot)
+        grads.append({k: v.grad for k, v in t.items()})
+    torch.cuda.synchronize()
+    rel = max(_rel(grads[0][k], grads[1][k]) for k in shapes)
+    if not rel <= GRAD_REL[dtype]:
+        raise AssertionError(f"layer grads on K4/K5 vs plain autograd "
+                             f"{dtype}: relative error {rel} > "
+                             f"{GRAD_REL[dtype]}")
+    return rel
+
+
+def training_kernel_checks() -> dict:
+    """Phase 5: K4 and K5 against their plain versions, at a small odd
+    shape and at the training shapes, and the layer's gradients."""
+    errs = {"K4": {}, "K5": {}, "layer_grad_rel": {}}
+    for T, B, H in ((7, 5, 40), (TRAIN_BPTT, TRAIN_BS, 2500),
+                    (TRAIN_BPTT, TRAIN_BS, 800)):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
+            errs["K4"][key] = check_k4(T, B, H, dtype)
+            errs["K5"][key] = check_k5(T, B, H, dtype)
+            print(f"K4/K5 vs plain {key}: max |diff| {errs['K4'][key]:.3g} "
+                  f"/ {errs['K5'][key]:.3g}", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"T{TRAIN_BPTT}_B{TRAIN_BS}_in800_H800_{str(dtype).split('.')[-1]}"
+        errs["layer_grad_rel"][key] = check_layer_grads(
+            TRAIN_BPTT, TRAIN_BS, 800, 800, dtype)
+        print(f"layer grads vs plain autograd {key}: relative "
+              f"{errs['layer_grad_rel'][key]:.3g}", flush=True)
+    return errs
+
+
+def write_corpus(root: Path) -> Vocab:
+    """A 60,000-token vocab and a stream that cycles through PERIOD
+    random tokens with 10% noise: learnable in a few windows. The train
+    corpus holds exactly TRAIN_WINDOWS windows, the valid corpus one."""
+    rng = np.random.default_rng(SEED)
+    itos = list(SPECIALS)
+    itos += [f"tok{i}" for i in range(FLAGSHIP.vocab_size - len(itos))]
+    vocab = Vocab(itos)
+    pattern = rng.integers(len(SPECIALS), len(itos), PERIOD)
+    for split, windows in (("train", TRAIN_WINDOWS), ("valid", 1)):
+        n = windows * TRAIN_BS * TRAIN_BPTT + 1
+        stream = np.resize(pattern, n).astype(np.int32)
+        noise = rng.random(n) < 0.1
+        stream[noise] = rng.integers(len(SPECIALS), len(itos), noise.sum())
+        writer = CorpusWriter(root / split)
+        writer.add_document(stream)
+        writer.finalize(vocab)
+    return vocab
+
+
+def window_check(corpus_dir: Path, ckpt_dir: Path | None = None) -> dict:
+    """The first training window's loss and gradients at flagship width,
+    bf16, with the reference's dropouts: the kernel path (K4, K5) against
+    the plain path (autograd through the plain loop) on the same weights
+    and the same masks. The weights are the seed's, or with ``ckpt_dir``
+    the trained checkpoint's (its carried states too)."""
+    cfg = FLAGSHIP
+    trainer = LMTrainer(cfg, TrainConfig(batch_size=TRAIN_BS,
+                                         bptt=TRAIN_BPTT), device="cuda")
+    state = trainer.init_state(SEED)
+    if ckpt_dir is not None:
+        state = restore_checkpoint(ckpt_dir, state)
+    loader = LMStreamLoader(TokenCorpus(corpus_dir / "train").tokens(),
+                            TRAIN_BS, TRAIN_BPTT, seed=SEED)
+    x, y = (torch.as_tensor(a, dtype=torch.long, device="cuda")
+            for a in next(loader.epoch(0)))
+    masks = draw_dropout_masks(
+        cfg, TRAIN_BS, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    out = {}
+    for name, model in (("kernel", state.model),
+                        ("plain", AWDLSTMLM(cfg, device="cuda", plain=True))):
+        if name == "plain":
+            model.load_state_dict(state.model.state_dict())
+        loss, _ = trainer.loss(model, x, y, state.lstm_states, masks)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()})
+    loss_k, grads_k = out["kernel"]
+    loss_p, grads_p = out["plain"]
+    rel = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
+    result = {"loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+              "grad_rel": rel, "loss_rtol": LOSS_RTOL,
+              "grad_rel_tol": GRAD_REL[torch.bfloat16]}
+    if not (math.isfinite(loss_k) and result["loss_rel_diff"] <= LOSS_RTOL
+            and max(rel.values()) <= GRAD_REL[torch.bfloat16]):
+        raise AssertionError(f"first window on the kernels vs plain: "
+                             f"{result}")
+    del out, grads_k, grads_p, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def training_phase(root: Path) -> dict:
+    """Phase 6: the port's training CLI at flagship width, then its
+    export served. Every launch counter is zeroed just before the CLI."""
+    corpus_dir, model_dir = root / "corpus", root / "run"
+    write_corpus(corpus_dir)
+    window = window_check(corpus_dir)
+    print(json.dumps({"train_window_check_init": window}), flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():  # every count to 0 just before the path
+        c.reset()
+    t0 = time.perf_counter()
+    summary = train_cli.main([
+        "--corpus_dir", str(corpus_dir), "--model_dir", str(model_dir),
+        "--emb_sz", str(FLAGSHIP.emb_sz), "--n_hid", str(FLAGSHIP.n_hid),
+        "--n_layers", str(FLAGSHIP.n_layers),
+        "--bf16", "--bs", str(TRAIN_BS), "--bptt", str(TRAIN_BPTT),
+        "--lr", str(TRAIN_LR), "--steps_per_dispatch", str(PER_DISPATCH),
+        "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in COUNTERS.items()}
+    steps = [json.loads(line) for line in
+             (model_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in steps if r["kind"] == "step"]
+    losses = [r["loss"] for r in steps]
+    n_layers = FLAGSHIP.n_layers
+    want = {"K4": n_layers * TRAIN_BPTT * TRAIN_WINDOWS,
+            "K5": n_layers * (TRAIN_BPTT + 1) * TRAIN_WINDOWS,
+            "K1": n_layers * TRAIN_BPTT * 1, "K2": 0, "K3": 0}
+    if len(losses) != TRAIN_WINDOWS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"window losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    # the second host read's windows: warm (the first paid the builds)
+    window_s = float(np.mean([r["step_time_s"]
+                              for r in steps[PER_DISPATCH:]]))
+    result = {"windows": TRAIN_WINDOWS, "losses": losses,
+              "val_loss": summary["val_loss"], "launches": launches,
+              "launches_expected": want, "cli_wall_s": wall_s,
+              "ms_per_window": window_s * 1e3,
+              "tokens_per_s": TRAIN_BS * TRAIN_BPTT / window_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    result["window_check_trained"] = window_check(corpus_dir,
+                                                  model_dir / "ckpt")
+    result["served"] = serve_trained(model_dir / "encoder_export")
+    return result
+
+
+def serve_trained(export: Path) -> dict:
+    """The port's server answers POST /text from the trained export."""
+    srv = build_server(export, device="cuda", batch_size=32,
+                       host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        docs = issues(np.random.default_rng(SEED + 6))[:3]
+        got = []
+        for issue in docs:
+            code, body = post(srv.port, issue)
+            if code != 200:
+                raise AssertionError(f"POST /text gave {code}: {body[:200]!r}")
+            got.append(np.frombuffer(body, dtype="<f4"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    got = np.stack(got)
+    if got.shape != (len(docs), 3 * FLAGSHIP.emb_sz) \
+            or not np.isfinite(got).all():
+        raise AssertionError(f"trained export served bad embeddings: "
+                             f"shape {got.shape}")
+    return {"requests": len(docs), "floats": int(got.shape[1]),
+            "finite": True}
+
+
+def cuda_ms_each(setup, fn, reps: int) -> float:
+    """Mean device time of ``fn(setup())``, timing only ``fn``."""
+    fn(setup())  # warm
+    total = 0.0
+    for _ in range(reps):
+        arg = setup()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def train_timing_phase() -> dict:
+    """K4 and K5 per call at the training shape of an H=2500 layer, bf16,
+    beside their bounds, their plain versions and cuDNN's LSTM (which the
+    port never calls; its forward also does the input projection, its
+    backward the input gradient)."""
+    T, B, H, dtype = TRAIN_BPTT, TRAIN_BS, 2500, torch.bfloat16
+    fwd_args = k1_inputs(T, B, H, dtype, seed=SEED + 7)
+    bwd_args = k5_inputs(T, B, H, dtype, seed=SEED + 8)
+    out = {"shape": {"T": T, "B": B, "H": H, "dtype": "bfloat16"},
+           "library": {"K4": "cuDNN torch.nn.LSTM training forward",
+                       "K5": "cuDNN torch.nn.LSTM backward to (h0, c0) "
+                             "only; also computes dx"}}
+    for name, kernel, plain, args, bound in (
+            ("K4", lambda *a: K1.fused_lstm_forward(*a, with_gates=True),
+             lambda *a: K1.fused_lstm_forward_plain(*a, with_gates=True),
+             fwd_args, k4_bound_ms),
+            ("K5", K1.fused_lstm_backward, K1.fused_lstm_backward_plain,
+             bwd_args, k5_bound_ms)):
+        bound_ms, bound_by = bound(T, B, H, dtype)
+        out[name] = {"ms": cuda_ms(lambda: kernel(*args), reps=5),
+                     "plain_ms": cuda_ms(lambda: plain(*args), reps=3),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    # the backward yardstick asks only for the initial state's gradient,
+    # the recurrent adjoint K5 computes: no weight gradients, though cuDNN
+    # still computes dx (one more (T*B, 4H) x (4H, H) product than K5)
+    lstm = torch.nn.LSTM(H, H).to("cuda", dtype).requires_grad_(False)
+    lstm.flatten_parameters()  # one cuDNN weight buffer, as in training
+    x = torch.randn((T, B, H), device="cuda", dtype=dtype)
+    state = tuple(t[None].clone().requires_grad_() for t in fwd_args[2:])
+    grad = torch.randn((T, B, H), device="cuda", dtype=dtype)
+    try:
+        out["K4"]["library_ms"] = cuda_ms(lambda: lstm(x, state), reps=5)
+        out["K5"]["library_ms"] = cuda_ms_each(
+            lambda: lstm(x, state)[0],
+            lambda y: torch.autograd.backward(y, grad), reps=5)
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        print(f"cuDNN LSTM yardstick unavailable: {e}", file=sys.stderr)
+        out["K4"]["library_ms"] = out["K5"]["library_ms"] = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -475,6 +863,7 @@ def main() -> int:
 
         phase = "kernel vs plain"
         errs = kernel_checks()
+        train_errs = training_kernel_checks()
 
         phase = "serve"
         rng = np.random.default_rng(SEED)
@@ -488,11 +877,18 @@ def main() -> int:
                   flush=True)
             serve = serve_paths(Path(tmp), docs)
 
+        phase = "train"
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            train = training_phase(Path(tmp))
+        print(json.dumps({"train": train}), flush=True)
+
         phase = "timing"
         timing = timing_phase()
         print(json.dumps({"timing": timing}), flush=True)
         ragged_timing = ragged_timing_phase()
         print(json.dumps({"ragged_timing": ragged_timing}), flush=True)
+        train_timing = train_timing_phase()
+        print(json.dumps({"train_timing": train_timing}), flush=True)
     except Exception as e:  # any failed phase fails the run
         print(f"chip_smoke: phase '{phase}' failed: {e!r}", file=sys.stderr)
         raise
@@ -530,6 +926,25 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "timed_shape": ragged_timing["shape"],
+        })
+    for name, fn, line in (("K4", "fused_lstm_forward_gates", "265"),
+                           ("K5", "fused_lstm_backward", "878")):
+        t = train_timing[name]
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces + line,
+            "launches": train["launches"][name],
+            "max_abs_err": max(train_errs[name].values()),
+            "max_abs_err_by_case": train_errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": train_timing["library"][name],
+            "timed_shape": train_timing["shape"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-// Fused LSTM recurrence, inference forward, for Hopper (sm_90a): kernel K1
-// and its length-aware variants K2 (ragged) and K3 (ragged, int8 W_hh).
+// Fused LSTM recurrence for Hopper (sm_90a): the inference forward K1, its
+// length-aware variants K2 (ragged) and K3 (ragged, int8 W_hh), the
+// training forward K4 and its adjoint K5 (at the end of the file).
 //
 // K1 replaces the TPU kernel code_intelligence_tpu/ops/pallas_lstm.py::
 // fused_lstm_forward with with_gates=False (body _kernel_no_gates). Same
@@ -14,6 +15,12 @@
 //
 // x_proj (T, B, 4H) is x @ W_ih^T + b, computed outside the kernel as in the
 // JAX package. W_hh is (4H, H), gate order i, f, g, o.
+//
+// K4 replaces fused_lstm_forward with with_gates=True (body
+// _kernel_with_gates): K1, plus each step also stores the post-activation
+// gates i, f, g, o (B, 4H) and the carry c it read (B, H), both rounded to
+// the input dtype as the TPU kernel stores them, since K5 recomputes from
+// those rounded values. It is the kGates instantiation of K1's template.
 //
 // K2 replaces fused_lstm_forward_ragged (body _ragged_kernel): K1 plus
 // valid_lens (B,) int32 on the device. Row b is live at step t while
@@ -204,7 +211,7 @@ __device__ __forceinline__ void halve_rows(float (&acc)[4][kBatchTile],
 // kChunk is a multiple of 256, so a pass never straddles two chunks.
 // T is the activation type, W the weight type (T for K1 and K2, int8_t for
 // K3). kRagged (K2, K3) adds the per-row freeze at step t and the h carry.
-template <typename T, typename W, bool kVec, bool kRagged>
+template <typename T, typename W, bool kVec, bool kRagged, bool kGates>
 __global__ void __launch_bounds__(kThreads)
 lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
           const W* __restrict__ w_hh,     // (4H, H)
@@ -217,6 +224,8 @@ lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
           T* __restrict__ c_out,          // (B, H)
           T* __restrict__ h_last,         // K1: (B, H) on the last step, else null
           T* __restrict__ y_out,          // kRagged: (B, H), out[t]
+          T* __restrict__ gates_out,      // kGates: (B, 4H), gates[t]
+          T* __restrict__ c_seq_out,      // kGates: (B, H), c_prev[t]
           int B, int H) {
   constexpr bool kInt8 = std::is_same<W, int8_t>::value;
   __shared__ __align__(16) float hs[kBatchTile][kChunk];
@@ -338,6 +347,14 @@ lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
   const float og = sigmoid(to_f32(xp[3 * H + j]) + dot[3]);
   const float c = fg * to_f32(c_prev[at]) + ig * gg;
   const T h = from_f32<T>(og * tanhf(c));
+  if constexpr (kGates) {  // K4's residuals, rounded to T as K5 reads them
+    T* gt = gates_out + (size_t)b * 4 * H;
+    gt[j] = from_f32<T>(ig);
+    gt[H + j] = from_f32<T>(fg);
+    gt[2 * H + j] = from_f32<T>(gg);
+    gt[3 * H + j] = from_f32<T>(og);
+    c_seq_out[at] = c_prev[at];  // the carry as stored, before this step
+  }
   h_out[at] = h;
   c_out[at] = from_f32<T>(c);
   if constexpr (kRagged) {
@@ -347,16 +364,18 @@ lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
   }
 }
 
-template <typename T>
+// K1 (kGates false) and K4 (kGates true: gates and c_seq are (T, B, 4H)
+// and (T, B, H) outputs).
+template <typename T, bool kGates>
 int run(const void* x_proj, const void* w_hh, const void* h0, const void* c0,
-        void* out, void* h_t, void* c_t, void* c_scratch, int T_len, int B,
-        int H, cudaStream_t stream) {
+        void* out, void* gates, void* c_seq, void* h_t, void* c_t,
+        void* c_scratch, int T_len, int B, int H, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x_proj);
   T* o = static_cast<T*>(out);
   const size_t BH = (size_t)B * H;
   const dim3 grid((B + kBatchTile - 1) / kBatchTile, (H + kUnits - 1) / kUnits);
-  const auto step = H % 4 == 0 ? lstm_step<T, T, true, false>
-                               : lstm_step<T, T, false, false>;
+  const auto step = H % 4 == 0 ? lstm_step<T, T, true, false, kGates>
+                               : lstm_step<T, T, false, false, kGates>;
   // c after step t lands in c_T when (T-1-t) is even, else in the scratch,
   // so the steps alternate buffers and the last one writes c_T.
   auto c_after = [&](int t) -> T* {
@@ -367,10 +386,13 @@ int run(const void* x_proj, const void* w_hh, const void* h0, const void* c0,
     const T* hp = t == 0 ? static_cast<const T*>(h0) : o + (t - 1) * BH;
     const T* cp = t == 0 ? static_cast<const T*>(c0) : c_after(t - 1);
     T* h_last = t == T_len - 1 ? static_cast<T*>(h_t) : nullptr;
+    T* gates_t = kGates ? static_cast<T*>(gates) + (size_t)t * 4 * BH
+                        : nullptr;
+    T* c_seq_t = kGates ? static_cast<T*>(c_seq) + (size_t)t * BH : nullptr;
     step<<<grid, kThreads, 0, stream>>>(
         xp + (size_t)t * 4 * BH, static_cast<const T*>(w_hh), nullptr,
         nullptr, t, hp, cp, o + (size_t)t * BH, c_after(t), h_last, nullptr,
-        B, H);
+        gates_t, c_seq_t, B, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -402,8 +424,8 @@ int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
     return (int)err;
   }
   const dim3 grid((B + kBatchTile - 1) / kBatchTile, (H + kUnits - 1) / kUnits);
-  const auto step = H % 4 == 0 ? lstm_step<T, W, true, true>
-                               : lstm_step<T, W, false, true>;
+  const auto step = H % 4 == 0 ? lstm_step<T, W, true, true, false>
+                               : lstm_step<T, W, false, true, false>;
   // the carry after step t: h_T / c_T when (t_live-1-t) is even, else the
   // scratch, so the last live step writes h_T / c_T
   auto after = [&](int t, void* last, void* scratch) -> T* {
@@ -417,8 +439,160 @@ int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
     step<<<grid, kThreads, 0, stream>>>(
         xp + (size_t)t * 4 * BH, static_cast<const W*>(w_hh), w_scale, valid,
         t, hp, cp, after(t, h_t, h_scratch), after(t, c_t, c_scratch),
-        nullptr, o + (size_t)t * BH, B, H);
+        nullptr, o + (size_t)t * BH, nullptr, nullptr, B, H);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K5: the LSTM adjoint over a window, in reverse time.
+//
+// Replaces code_intelligence_tpu/ops/pallas_lstm.py::fused_lstm_backward
+// (body _bwd_kernel). With the f32 carry (dh, dc) = (dh_T, dc_T), for
+// t = T-1 down to 0:
+//
+//   i, f, g, o = gates[t] ; c = f * c_prev[t] + i * g (recomputed)
+//   dh += d_out[t] ; dc += dh * o * (1 - tanh(c)^2)
+//   dz[t] = (dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2),
+//            dh*tanh(c)*o*(1-o)), stored in T
+//   dh = dz[t] @ W_hh (dz as stored, f32 sums) ; dc = dc * f
+//
+// and dh0, dc0 are the final carry in T. What bounds it is what bounds K1:
+// every step's product needs all of W_hh (4H*H elements) against dz[t].
+//
+// Design, simple first. The product of step t needs all of dz[t], which
+// every block writes a part of, so a step ends with its launch: one launch
+// per step. A block owns kBwdCols consecutive columns j of the row-major
+// W_hh and kBwdRows batch rows. In one launch it computes
+// dh[:, j] = dz[t+1] @ W_hh[:, j] for its tile (lanes on consecutive j, so
+// each W_hh row is read coalesced; the 4H sum is split over the block's
+// warps and added in shared memory; dz is staged in shared memory and read
+// as a broadcast), and then, with those dh values, finishes the
+// element-wise adjoint of step t for the same (b, j): the four dz[t]
+// entries at j, H+j, 2H+j, 3H+j, and its dc, which only this thread reads
+// and writes, in place in an f32 buffer. The first launch has no product
+// (dh = dh_T) and the last has no element-wise step (it writes dh0, dc0),
+// so a window takes T + 1 launches.
+
+constexpr int kBwdCols = 32;                 // W_hh columns per block
+constexpr int kBwdWarps = 8;                 // warps splitting the 4H sum
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdRows = 16;                 // batch rows per block
+constexpr int kBwdChunk = kBwdWarps * 32;    // dz columns staged at a time
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+lstm_bwd_step(const T* __restrict__ dz_next,  // (B, 4H) dz[t+1], or null
+              const T* __restrict__ w_hh,     // (4H, H)
+              const T* __restrict__ dh_init,  // (B, H) dh_T, when no dz_next
+              const T* __restrict__ gates,    // (B, 4H) gates[t], or null
+              const T* __restrict__ c_prev,   // (B, H) c_prev[t]
+              const T* __restrict__ d_out,    // (B, H) d_out[t]
+              float* __restrict__ dc,         // (B, H) f32 carry, in place
+              T* __restrict__ dz_out,         // (B, 4H) dz[t]
+              T* __restrict__ dh0,            // (B, H), when no gates
+              T* __restrict__ dc0,            // (B, H), when no gates
+              int B, int H) {
+  __shared__ float zs[kBwdRows][kBwdChunk];
+  __shared__ float red[kBwdWarps][kBwdRows][kBwdCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.y * kBwdCols, b0 = blockIdx.x * kBwdRows;
+  const int j = j0 + lane;
+  const int G = 4 * H;
+
+  if (dz_next != nullptr) {  // the same for the whole block
+    float acc[kBwdRows];
+#pragma unroll
+    for (int bb = 0; bb < kBwdRows; ++bb) acc[bb] = 0.0f;
+    for (int r0 = 0; r0 < G; r0 += kBwdChunk) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = threadIdx.x; i < kBwdRows * kBwdChunk; i += kBwdThreads) {
+        const int bb = i / kBwdChunk, rr = i % kBwdChunk;
+        const int b = b0 + bb, r = r0 + rr;
+        zs[bb][rr] = (b < B && r < G) ? to_f32(dz_next[(size_t)b * G + r])
+                                      : 0.0f;
+      }
+      __syncthreads();
+      // warp w takes rows r0 + 32w .. +31: all 32 W_hh loads first
+      const int rbase = r0 + warp * 32;
+      float w[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int r = rbase + k;
+        w[k] = (j < H && r < G) ? to_f32(w_hh[(size_t)r * H + j]) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+#pragma unroll
+        for (int bb = 0; bb < kBwdRows; ++bb)
+          acc[bb] = fmaf(zs[bb][warp * 32 + k], w[k], acc[bb]);
+    }
+#pragma unroll
+    for (int bb = 0; bb < kBwdRows; ++bb) red[warp][bb][lane] = acc[bb];
+    __syncthreads();
+  }
+
+  // element-wise part: consecutive threads on consecutive columns
+  for (int p = threadIdx.x; p < kBwdRows * kBwdCols; p += kBwdThreads) {
+    const int bb = p / kBwdCols, jj = p % kBwdCols;
+    const int b = b0 + bb, jx = j0 + jj;
+    if (b >= B || jx >= H) continue;
+    const size_t at = (size_t)b * H + jx;
+    float dh;
+    if (dz_next != nullptr) {
+      dh = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) dh += red[w][bb][jj];
+    } else {
+      dh = to_f32(dh_init[at]);
+    }
+    if (gates == nullptr) {  // past step 0: the carry is dh0, dc0
+      dh0[at] = from_f32<T>(dh);
+      dc0[at] = from_f32<T>(dc[at]);
+      continue;
+    }
+    const T* g = gates + (size_t)b * G;
+    const float i_t = to_f32(g[jx]), f_t = to_f32(g[H + jx]);
+    const float g_t = to_f32(g[2 * H + jx]), o_t = to_f32(g[3 * H + jx]);
+    const float cp = to_f32(c_prev[at]);
+    const float tanh_c = tanhf(f_t * cp + i_t * g_t);
+    dh += to_f32(d_out[at]);
+    const float d_o = dh * tanh_c;
+    const float dcv = dc[at] + dh * o_t * (1.0f - tanh_c * tanh_c);
+    T* z = dz_out + (size_t)b * G;
+    z[jx] = from_f32<T>((dcv * g_t) * i_t * (1.0f - i_t));
+    z[H + jx] = from_f32<T>((dcv * cp) * f_t * (1.0f - f_t));
+    z[2 * H + jx] = from_f32<T>((dcv * i_t) * (1.0f - g_t * g_t));
+    z[3 * H + jx] = from_f32<T>(d_o * o_t * (1.0f - o_t));
+    dc[at] = dcv * f_t;
+  }
+}
+
+template <typename T>
+int run_bwd(const void* gates, const void* c_seq, const void* d_out,
+            const void* w_hh, const void* dh_t, float* dc, void* dz,
+            void* dh0, void* dc0, int T_len, int B, int H,
+            cudaStream_t stream) {
+  const size_t BH = (size_t)B * H, BG = 4 * BH;
+  const T* gs = static_cast<const T*>(gates);
+  const T* cs = static_cast<const T*>(c_seq);
+  const T* dout = static_cast<const T*>(d_out);
+  T* z = static_cast<T*>(dz);
+  const dim3 grid((B + kBwdRows - 1) / kBwdRows,
+                  (H + kBwdCols - 1) / kBwdCols);
+  // launch s: the product of dz[s] (none for s = T), then step t = s - 1
+  for (int s = T_len; s >= 0; --s) {
+    const int t = s - 1;
+    const bool last = s == 0;
+    lstm_bwd_step<T><<<grid, kBwdThreads, 0, stream>>>(
+        s == T_len ? nullptr : z + s * BG, static_cast<const T*>(w_hh),
+        static_cast<const T*>(dh_t), last ? nullptr : gs + t * BG,
+        last ? nullptr : cs + t * BH, last ? nullptr : dout + t * BH, dc,
+        last ? nullptr : z + t * BG, static_cast<T*>(dh0),
+        static_cast<T*>(dc0), B, H);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -437,11 +611,47 @@ int fused_lstm_forward(int dtype, const void* x_proj, const void* w_hh,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(x_proj, w_hh, h0, c0, out, h_t, c_t, c_scratch, T, B,
-                      H, s);
+    return run<float, false>(x_proj, w_hh, h0, c0, out, nullptr, nullptr,
+                             h_t, c_t, c_scratch, T, B, H, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(x_proj, w_hh, h0, c0, out, h_t, c_t, c_scratch,
-                              T, B, H, s);
+    return run<__nv_bfloat16, false>(x_proj, w_hh, h0, c0, out, nullptr,
+                                     nullptr, h_t, c_t, c_scratch, T, B, H,
+                                     s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4: K1 plus the training residuals gates (T, B, 4H) and c_seq (T, B, H),
+// in the same dtype.
+int fused_lstm_forward_gates(int dtype, const void* x_proj, const void* w_hh,
+                             const void* h0, const void* c0, void* out,
+                             void* gates, void* c_seq, void* h_t, void* c_t,
+                             void* c_scratch, int T, int B, int H,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float, true>(x_proj, w_hh, h0, c0, out, gates, c_seq, h_t,
+                            c_t, c_scratch, T, B, H, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16, true>(x_proj, w_hh, h0, c0, out, gates, c_seq,
+                                    h_t, c_t, c_scratch, T, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5. gates (T, B, 4H), c_seq, d_out (T, B, H), w_hh (4H, H), dh_t (B, H)
+// and the outputs dz (T, B, 4H), dh0, dc0 (B, H) are of dtype; dc is a
+// (B, H) f32 buffer that holds dc_T on entry (rounded to dtype) and is
+// overwritten. T + 1 launches; T = 0 is the caller's to handle.
+int fused_lstm_backward(int dtype, const void* gates, const void* c_seq,
+                        const void* d_out, const void* w_hh, const void* dh_t,
+                        float* dc, void* dz, void* dh0, void* dc0, int T,
+                        int B, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_bwd<float>(gates, c_seq, d_out, w_hh, dh_t, dc, dz, dh0, dc0,
+                          T, B, H, s);
+  if (dtype == 1)
+    return run_bwd<__nv_bfloat16>(gates, c_seq, d_out, w_hh, dh_t, dc, dz,
+                                  dh0, dc0, T, B, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,19 @@
-"""AWD-LSTM encoder, inference branch.
+"""AWD-LSTM encoder and language model.
 
-Port of the deterministic LSTM branch of the JAX package's
-``models/awd_lstm.py::AWDLSTMEncoder``: embedding gather, then N stacked
-LSTM layers, each an input projection plus a fused recurrence from
-``ops/fused_lstm.py``, routed as the JAX encoder routes its Pallas
-branches:
+Port of the LSTM branches of the JAX package's ``models/awd_lstm.py``:
+``AWDLSTMEncoder`` (embedding gather, then N stacked LSTM layers, each an
+input projection plus a fused recurrence from ``ops/fused_lstm.py``) and
+``AWDLSTMLM`` (the encoder plus the tied decoder). The layers are routed
+as the JAX encoder routes its Pallas branches:
 
 * ``precision="int8"``: K3 (int8 ``W_hh``, per-row scales), always;
 * f32/bf16 weights with ``valid_lens``: K2 (the ragged scheduler);
-* f32/bf16 weights without: K1 (the dense ``slots`` and ``groups`` paths).
+* f32/bf16 weights without: ``lstm_layer_fused``, which runs K4 and K5
+  when autograd needs gradients (training) and K1 otherwise (the dense
+  ``slots`` and ``groups`` paths, evaluation).
 
-Dropout, DropConnect and the sequence-parallel axis are training concerns
-and are not ported here.
+Training uses the five AWD dropouts, each with one mask per window
+(:func:`draw_dropout_masks`). The sequence-parallel axis is not ported.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ class AWDLSTMConfig:
     """Reads every key of the JAX package's ``model_config.json``.
 
     ``lstm_use_pallas`` is accepted and ignored: the port has one kernel
-    path on CUDA. The dropout rates are kept for the round trip and unused
-    at inference. ``precision="int8"`` is the serve-path weight precision
-    that the engine sets when it quantizes at load (``ops/quantize.py``).
+    path on CUDA. The dropout rates are used in training only.
+    ``precision="int8"`` is the serve-path weight precision that the
+    engine sets when it quantizes at load (``ops/quantize.py``).
     """
 
     vocab_size: int
@@ -119,8 +121,46 @@ def random_encoder_arrays(config: AWDLSTMConfig, seed: int = 0) -> dict:
     return arrays
 
 
+def draw_dropout_masks(config: AWDLSTMConfig, batch_size: int,
+                       generator: torch.Generator, device="cpu") -> dict:
+    """One window's AWD dropout masks, as boolean keep masks drawn from
+    ``generator`` (each element kept with probability ``1 - p``); a rate
+    of 0 draws nothing:
+
+    * ``embed`` ``(V, 1)``: whole rows of the embedding table;
+    * ``input`` ``(B, 1, emb_sz)``, ``hidden_{i}`` ``(B, 1, H_i)`` for all
+      but the last layer, ``output`` ``(B, 1, emb_sz)``: locked dropout,
+      one mask reused across time;
+    * ``weight_{i}`` ``(4H_i, H_i)``: DropConnect on layer i's ``W_hh``.
+    """
+    def keep(p, *shape):
+        return torch.rand(shape, generator=generator, device=device) < 1 - p
+
+    cfg = config
+    masks = {}
+    if cfg.embed_p > 0:
+        masks["embed"] = keep(cfg.embed_p, cfg.vocab_size, 1)
+    if cfg.input_p > 0:
+        masks["input"] = keep(cfg.input_p, batch_size, 1, cfg.emb_sz)
+    for li in range(cfg.n_layers):
+        H = cfg.layer_size(li)
+        if cfg.weight_p > 0:
+            masks[f"weight_{li}"] = keep(cfg.weight_p, 4 * H, H)
+        if li < cfg.n_layers - 1 and cfg.hidden_p > 0:
+            masks[f"hidden_{li}"] = keep(cfg.hidden_p, batch_size, 1, H)
+    if cfg.output_p > 0:
+        masks["output"] = keep(cfg.output_p, batch_size, 1, cfg.emb_sz)
+    return masks
+
+
+def _scaled(keep: torch.Tensor, p: float, dtype: torch.dtype):
+    """A keep mask as the JAX package applies it: ``keep / (1 - p)`` in
+    the compute dtype."""
+    return keep.to(dtype) / (1.0 - p)
+
+
 class AWDLSTMEncoder(nn.Module):
-    """Embedding + stacked LSTM layers, frozen, in the config's dtype.
+    """Embedding + stacked LSTM layers, in the config's dtype.
 
     Parameter names are the export's flat keys (``embedding``,
     ``lstm_{i}_w_ih|w_hh|bias``). Under ``precision="int8"`` the embedding
@@ -129,20 +169,28 @@ class AWDLSTMEncoder(nn.Module):
     compute dtype. ``plain=True`` runs each recurrence through its kernel's
     plain PyTorch version on any device; it is the reference the kernel
     path is held against on the card.
+
+    Frozen by default. ``trainable=True`` keeps f32 master weights that
+    take gradients and are cast to the compute dtype in the forward, as
+    the JAX model casts ``w.astype(cfg.dtype)``.
     """
 
     def __init__(self, config: AWDLSTMConfig, device="cpu",
-                 plain: bool = False):
+                 plain: bool = False, trainable: bool = False):
         super().__init__()
         self.config = config
         self.plain = plain
         self.int8 = config.precision == "int8"
+        if trainable and self.int8:
+            raise ValueError("precision='int8' is a serve-path mode: "
+                             "training runs f32 master weights")
+        pdtype = torch.float32 if trainable else config.torch_dtype
 
-        def param(*shape, dtype=config.torch_dtype):
+        def param(*shape, dtype=pdtype):
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                                requires_grad=False)
+                                requires_grad=trainable)
 
-        wdtype = torch.int8 if self.int8 else config.torch_dtype
+        wdtype = torch.int8 if self.int8 else pdtype
         self.embedding = param(config.vocab_size, config.emb_sz, dtype=wdtype)
         if self.int8:
             setattr(self, "embedding" + SCALE_SUFFIX,
@@ -159,7 +207,7 @@ class AWDLSTMEncoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, states: Tuple[LSTMState, ...],
                 valid_lens: Optional[torch.Tensor] = None,
-                t_live: Optional[int] = None):
+                t_live: Optional[int] = None, masks: Optional[dict] = None):
         """``tokens (B, T)`` ids -> ``(raw_output (B, T, emb_sz),
         new_states)``.
 
@@ -169,19 +217,28 @@ class AWDLSTMEncoder(nn.Module):
         least ``min(T, max(valid_lens))``, lets them launch only the live
         steps; the caller knows the lengths on the host, so no layer
         reads ``valid_lens`` back. An int8 encoder without ``valid_lens``
-        treats every token as live."""
+        treats every token as live.
+
+        ``masks`` (training, from :func:`draw_dropout_masks`) applies the
+        embedding, input, DropConnect and hidden dropouts; the output
+        dropout is the language model's."""
         cfg = self.config
         dtype = cfg.torch_dtype
         B, T = tokens.shape
-        x = self.embedding[tokens.long()]  # (B, T, E)
+        masks = masks or {}
+        table = self.embedding
+        if "embed" in masks:  # whole rows, in f32 as the JAX model drops them
+            table = table * masks["embed"] / (1.0 - cfg.embed_p)
+        x = table[tokens.long()].to(dtype)  # (B, T, E)
         if self.int8:
             # dequantize after the gather: only the (B, T, E) activation,
             # never the whole table
-            x = x.to(dtype) * getattr(
-                self, "embedding" + SCALE_SUFFIX).to(dtype)
+            x = x * getattr(self, "embedding" + SCALE_SUFFIX).to(dtype)
             if valid_lens is None:
                 valid_lens = torch.full((B,), T, dtype=torch.int32,
                                         device=tokens.device)
+        if "input" in masks:
+            x = x * _scaled(masks["input"], cfg.input_p, dtype)
         if valid_lens is not None:
             valid_lens = valid_lens.to(torch.int32).contiguous()
         new_states = []
@@ -200,7 +257,47 @@ class AWDLSTMEncoder(nn.Module):
                     x, states[li], w_ih, w_hh, bias, valid_lens, t_live,
                     plain=self.plain)
             else:
+                w_ih, w_hh, bias = (w.to(dtype) for w in (w_ih, w_hh, bias))
+                if f"weight_{li}" in masks:
+                    w_hh = w_hh * _scaled(masks[f"weight_{li}"],
+                                          cfg.weight_p, dtype)
                 layer = lstm_layer if self.plain else lstm_layer_fused
                 x, st = layer(x, states[li], w_ih, w_hh, bias)
+            if f"hidden_{li}" in masks:
+                x = x * _scaled(masks[f"hidden_{li}"], cfg.hidden_p, dtype)
             new_states.append(st)
         return x, tuple(new_states)
+
+
+class AWDLSTMLM(nn.Module):
+    """Trainable encoder + the tied decoder: ``tokens (B, T)`` ->
+    ``(logits (B, T, V), raw, dropped, new_states)``, where ``raw`` is the
+    last layer's output and ``dropped`` is ``raw`` after the output
+    dropout, as the JAX ``AWDLSTMLM`` returns them for the AR and TAR
+    terms. Parameters: ``encoder.*`` (f32 masters) and ``decoder_b``
+    (zeros, the JAX init)."""
+
+    def __init__(self, config: AWDLSTMConfig, device="cpu",
+                 plain: bool = False):
+        super().__init__()
+        if not config.tie_weights:
+            raise NotImplementedError("only the tied decoder is ported")
+        self.config = config
+        self.encoder = AWDLSTMEncoder(config, device=device, plain=plain,
+                                      trainable=True)
+        if config.out_bias:
+            self.decoder_b = nn.Parameter(
+                torch.zeros(config.vocab_size, device=device))
+
+    def forward(self, tokens: torch.Tensor, states: Tuple[LSTMState, ...],
+                masks: Optional[dict] = None):
+        cfg = self.config
+        dtype = cfg.torch_dtype
+        raw, new_states = self.encoder(tokens, states, masks=masks)
+        dropped = raw
+        if masks and "output" in masks:
+            dropped = raw * _scaled(masks["output"], cfg.output_p, dtype)
+        logits = dropped @ self.encoder.embedding.to(dtype).t()
+        if cfg.out_bias:
+            logits = logits + self.decoder_b.to(dtype)
+        return logits, raw, dropped, new_states

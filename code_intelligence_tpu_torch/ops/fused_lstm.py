@@ -1,6 +1,6 @@
-"""Fused LSTM recurrence kernels K1-K3 and their plain PyTorch versions.
+"""Fused LSTM recurrence kernels K1-K5 and their plain PyTorch versions.
 
-Ports of the JAX package's ``ops/pallas_lstm.py`` inference kernels:
+Ports of the JAX package's ``ops/pallas_lstm.py`` kernels:
 
 * K1 :func:`fused_lstm_forward` (``fused_lstm_forward``,
   ``with_gates=False``): the dense recurrence of the ``slots`` and
@@ -9,7 +9,15 @@ Ports of the JAX package's ``ops/pallas_lstm.py`` inference kernels:
   K1 plus per-row valid lengths, for the ragged scheduler;
 * K3 :func:`fused_lstm_forward_ragged_int8`
   (``fused_lstm_forward_ragged_int8``): K2 with an int8 ``W_hh`` and one
-  f32 scale per output row, for ``precision="int8"``.
+  f32 scale per output row, for ``precision="int8"``;
+* K4 :func:`fused_lstm_forward` with ``with_gates=True``: K1 plus the
+  training residuals (the gates and the pre-step cell state);
+* K5 :func:`fused_lstm_backward` (``fused_lstm_backward``): the adjoint
+  of the recurrence over those residuals.
+
+:func:`lstm_layer_fused` pairs K4 and K5 in one ``torch.autograd.Function``,
+as the JAX package pairs them in one ``custom_vjp``; without a gradient to
+take, it runs K1.
 
 The kernels are hand-written CUDA in ``csrc/fused_lstm.cu``; its header
 says what bounds them on an H100 and how they are laid out. The TPU's
@@ -65,12 +73,18 @@ class LaunchCounter:
 launches = LaunchCounter()               # K1
 ragged_launches = LaunchCounter()        # K2
 ragged_int8_launches = LaunchCounter()   # K3
+gates_launches = LaunchCounter()         # K4
+backward_launches = LaunchCounter()      # K5
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_lstm_forward.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.fused_lstm_forward.restype = i
+    lib.fused_lstm_forward_gates.argtypes = [i, *[p] * 10, i, i, i, p]
+    lib.fused_lstm_forward_gates.restype = i
+    lib.fused_lstm_backward.argtypes = [i, *[p] * 9, i, i, i, p]
+    lib.fused_lstm_backward.restype = i
     lib.fused_lstm_forward_ragged.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, p]
     lib.fused_lstm_forward_ragged.restype = i
@@ -96,9 +110,7 @@ def _check(x_proj, w_hh, h0, c0, w_dtype=None) -> Tuple[int, int, int]:
     tensors = (x_proj, w_hh, h0, c0)
     if any(t.device != x_proj.device for t in tensors):
         raise ValueError("x_proj, w_hh, h0 and c0 must be on one device")
-    if x_proj.dtype not in _DTYPE_CODES:
-        raise TypeError(f"dtype {x_proj.dtype} is not supported "
-                        "(float32 or bfloat16)")
+    _check_dtype(x_proj)
     if w_dtype is None:
         if any(t.dtype != x_proj.dtype for t in tensors):
             raise TypeError("x_proj, w_hh, h0 and c0 must share one dtype")
@@ -108,6 +120,21 @@ def _check(x_proj, w_hh, h0, c0, w_dtype=None) -> Tuple[int, int, int]:
         if h0.dtype != x_proj.dtype or c0.dtype != x_proj.dtype:
             raise TypeError("x_proj, h0 and c0 must share one dtype")
     return T, B, H
+
+
+def _check_dtype(t: torch.Tensor) -> None:
+    """f32 or bf16; float64 too on the CPU, where the plain versions run
+    (``torch.autograd.gradcheck`` takes float64)."""
+    if t.dtype not in _DTYPE_CODES and not (
+            t.dtype == torch.float64 and t.device.type == "cpu"):
+        raise TypeError(f"dtype {t.dtype} is not supported "
+                        "(float32 or bfloat16)")
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: f32, as in the kernels, or
+    float64 for float64 inputs."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _check_ragged(x_proj, valid_lens, t_live: Optional[int]) -> int:
@@ -136,63 +163,194 @@ def _check_launchable(name: str, tensors) -> None:
 
 
 def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                       h0: torch.Tensor, c0: torch.Tensor
-                       ) -> Tuple[torch.Tensor, LSTMState]:
+                       h0: torch.Tensor, c0: torch.Tensor,
+                       with_gates: bool = False):
     """``(x_proj (T, B, 4H), w_hh (4H, H), h0, c0 (B, H))`` ->
     ``(out (T, B, H), (h_T, c_T))``, all in one dtype (f32 or bf16).
 
-    CPU tensors run the plain version; CUDA tensors launch K1."""
+    ``with_gates=True`` (K4) returns ``(out, (gates, c_prev), (h_T,
+    c_T))``: the post-activation gates ``(T, B, 4H)`` in order i, f, g, o
+    and the cell state each step read ``(T, B, H)``, in the input dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch K1 or K4."""
     T, B, H = _check(x_proj, w_hh, h0, c0)
     if x_proj.device.type == "cpu":
-        return fused_lstm_forward_plain(x_proj, w_hh, h0, c0)
+        return fused_lstm_forward_plain(x_proj, w_hh, h0, c0, with_gates)
+    name = "K4" if with_gates else "K1"
     if x_proj.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {x_proj.device}")
+        raise ValueError(f"no {name} kernel for device {x_proj.device}")
     if not all(t.is_contiguous() for t in (x_proj, w_hh, h0, c0)):
-        raise ValueError("K1 takes contiguous x_proj, w_hh, h0 and c0")
+        raise ValueError(f"{name} takes contiguous x_proj, w_hh, h0 and c0")
     kw = {"dtype": x_proj.dtype, "device": x_proj.device}
     out = torch.empty((T, B, H), **kw)
     h_t = torch.empty((B, H), **kw)
     c_t = torch.empty((B, H), **kw)
+    gates = torch.empty((T, B, 4 * H), **kw) if with_gates else None
+    c_seq = torch.empty((T, B, H), **kw) if with_gates else None
     if T == 0:
-        return out, (h_t.copy_(h0), c_t.copy_(c0))
-    c_scratch = torch.empty((B, H), **kw)
-    lib = _build.load("fused_lstm", _bind)
-    with torch.cuda.device(x_proj.device):
-        err = lib.fused_lstm_forward(
-            _DTYPE_CODES[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), out.data_ptr(), h_t.data_ptr(),
-            c_t.data_ptr(), c_scratch.data_ptr(), T, B, H,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.fused_lstm_error_string(err).decode()
-        raise RuntimeError(f"K1 fused_lstm_forward launch failed: {msg} "
-                           f"(cudaError {err}) at T={T} B={B} H={H}")
-    launches.add(T)
+        h_t.copy_(h0)
+        c_t.copy_(c0)
+    else:
+        c_scratch = torch.empty((B, H), **kw)
+        lib = _build.load("fused_lstm", _bind)
+        ptrs = [x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
+                c0.data_ptr(), out.data_ptr()]
+        if with_gates:
+            ptrs += [gates.data_ptr(), c_seq.data_ptr()]
+        ptrs += [h_t.data_ptr(), c_t.data_ptr(), c_scratch.data_ptr()]
+        entry = (lib.fused_lstm_forward_gates if with_gates
+                 else lib.fused_lstm_forward)
+        with torch.cuda.device(x_proj.device):
+            err = entry(_DTYPE_CODES[x_proj.dtype], *ptrs, T, B, H,
+                        torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            msg = lib.fused_lstm_error_string(err).decode()
+            raise RuntimeError(f"{name} fused_lstm_forward launch failed: "
+                               f"{msg} (cudaError {err}) at T={T} B={B} "
+                               f"H={H}")
+        (gates_launches if with_gates else launches).add(T)
+    if with_gates:
+        return out, (gates, c_seq), (h_t, c_t)
     return out, (h_t, c_t)
 
 
 def fused_lstm_forward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                             h0: torch.Tensor, c0: torch.Tensor
-                             ) -> Tuple[torch.Tensor, LSTMState]:
-    """K1's function as a per-step PyTorch loop, with the kernel's
-    rounding: gates and cell math in f32, h and c stored in the input
-    dtype after every step."""
+                             h0: torch.Tensor, c0: torch.Tensor,
+                             with_gates: bool = False):
+    """K1's (``with_gates=True``: K4's) function as a per-step PyTorch
+    loop, with the kernel's rounding: gates and cell math in f32, h and c
+    stored in the input dtype after every step, and K4's gates and
+    pre-step cell state stored in the input dtype too. Differentiable, so
+    autograd through it is the reference for K4 and K5 together."""
     _check(x_proj, w_hh, h0, c0)
     _require_full_f32(x_proj, "K1")
     T, B, _ = x_proj.shape
     dtype = x_proj.dtype
-    w_t = w_hh.float().t()  # (H, 4H)
+    acc = _acc(dtype)
+    w_t = w_hh.to(acc).t()  # (H, 4H)
     h, c = h0, c0
-    out = torch.empty((T, B, w_hh.shape[1]), dtype=dtype,
-                      device=x_proj.device)
+    outs, gates_seq, c_seq = [], [], []
     for t in range(T):
-        gates = x_proj[t].float() + h.float() @ w_t
+        gates = x_proj[t].to(acc) + h.to(acc) @ w_t
         i, f, g, o = gates.chunk(4, dim=-1)
-        c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c_new = f * c.to(acc) + i * g
+        h_new = o * torch.tanh(c_new)
+        if with_gates:
+            gates_seq.append(torch.cat([i, f, g, o], dim=-1).to(dtype))
+            c_seq.append(c)
         h, c = h_new.to(dtype), c_new.to(dtype)
-        out[t] = h
-    return out, (h, c)
+        outs.append(h)
+    out = (torch.stack(outs) if outs else
+           x_proj.new_empty((0, B, w_hh.shape[1])))
+    if not with_gates:
+        return out, (h, c)
+    if T == 0:
+        return (out, (x_proj.new_empty((0, B, w_hh.shape[0])),
+                      x_proj.new_empty((0, B, w_hh.shape[1]))), (h, c))
+    return out, (torch.stack(gates_seq), torch.stack(c_seq)), (h, c)
+
+
+def _check_bwd(gates, c_prev, d_out, w_hh, dh_t, dc_t) -> Tuple[int, int, int]:
+    if gates.dim() != 3 or gates.shape[2] % 4:
+        raise ValueError(f"gates must be (T, B, 4H), got {tuple(gates.shape)}")
+    T, B, G = gates.shape
+    H = G // 4
+    want = {"c_prev": (c_prev, (T, B, H)), "d_out": (d_out, (T, B, H)),
+            "w_hh": (w_hh, (G, H)), "dh_t": (dh_t, (B, H)),
+            "dc_t": (dc_t, (B, H))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    tensors = (gates, c_prev, d_out, w_hh, dh_t, dc_t)
+    if any(t.device != gates.device for t in tensors):
+        raise ValueError("K5's tensors must be on one device")
+    _check_dtype(gates)
+    if any(t.dtype != gates.dtype for t in (c_prev, w_hh)):
+        raise TypeError("gates, c_prev and w_hh must share one dtype")
+    return T, B, H
+
+
+def fused_lstm_backward(gates: torch.Tensor, c_prev: torch.Tensor,
+                        d_out: torch.Tensor, w_hh: torch.Tensor,
+                        dh_t: torch.Tensor, dc_t: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5: the adjoint of K4's recurrence over a window, in reverse time.
+
+    ``gates (T, B, 4H)`` and ``c_prev (T, B, H)`` are K4's residuals,
+    ``d_out (T, B, H)`` the output cotangent, ``w_hh (4H, H)`` the
+    recurrent weights the forward ran with, ``dh_t, dc_t (B, H)`` the
+    final-state cotangents. ``d_out``, ``dh_t`` and ``dc_t`` are rounded to
+    the gates' dtype on entry. Returns ``(dz (T, B, 4H), dh0, dc0)`` in
+    that dtype: the pre-activation gradients and the initial-state
+    cotangents. The carry is f32 throughout.
+
+    CPU tensors run the plain version; CUDA tensors launch K5."""
+    T, B, H = _check_bwd(gates, c_prev, d_out, w_hh, dh_t, dc_t)
+    if gates.device.type == "cpu":
+        return fused_lstm_backward_plain(gates, c_prev, d_out, w_hh, dh_t,
+                                         dc_t)
+    if gates.device.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {gates.device}")
+    dtype = gates.dtype
+    d_out, dh_t = (t.to(dtype).contiguous() for t in (d_out, dh_t))
+    if not all(t.is_contiguous() for t in (gates, c_prev, w_hh)):
+        raise ValueError("K5 takes contiguous gates, c_prev and w_hh")
+    # the f32 carry, a buffer of its own that the kernel updates in place
+    dc = torch.empty((B, H), dtype=torch.float32, device=gates.device)
+    dc.copy_(dc_t.to(dtype))
+    if T == 0:
+        return gates.new_empty((0, B, 4 * H)), dh_t, dc.to(dtype)
+    kw = {"dtype": dtype, "device": gates.device}
+    dz = torch.empty((T, B, 4 * H), **kw)
+    dh0 = torch.empty((B, H), **kw)
+    dc0 = torch.empty((B, H), **kw)
+    lib = _build.load("fused_lstm", _bind)
+    with torch.cuda.device(gates.device):
+        err = lib.fused_lstm_backward(
+            _DTYPE_CODES[dtype], gates.data_ptr(), c_prev.data_ptr(),
+            d_out.data_ptr(), w_hh.data_ptr(), dh_t.data_ptr(),
+            dc.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T,
+            B, H, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.fused_lstm_error_string(err).decode()
+        raise RuntimeError(f"K5 fused_lstm_backward launch failed: {msg} "
+                           f"(cudaError {err}) at T={T} B={B} H={H}")
+    backward_launches.add(T + 1)  # a launch per step, and one for dh0
+    return dz, dh0, dc0
+
+
+def fused_lstm_backward_plain(gates: torch.Tensor, c_prev: torch.Tensor,
+                              d_out: torch.Tensor, w_hh: torch.Tensor,
+                              dh_t: torch.Tensor, dc_t: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """K5's function as a reverse-time PyTorch loop with the kernel's
+    rounding: an f32 carry, ``dz`` stored in the gates' dtype, and the
+    product ``dz @ W_hh`` taken on that stored ``dz`` with f32 sums."""
+    T, B, H = _check_bwd(gates, c_prev, d_out, w_hh, dh_t, dc_t)
+    _require_full_f32(gates, "K5")
+    dtype = gates.dtype
+    acc = _acc(dtype)
+    w = w_hh.to(acc)
+    dh, dc = (t.to(dtype).to(acc) for t in (dh_t, dc_t))
+    d_out = d_out.to(dtype)
+    dz = torch.empty((T, B, 4 * H), dtype=dtype, device=gates.device)
+    for t in reversed(range(T)):
+        i, f, g, o = gates[t].to(acc).chunk(4, dim=-1)
+        cp = c_prev[t].to(acc)
+        tanh_c = torch.tanh(f * cp + i * g)
+        dh = dh + d_out[t].to(acc)
+        do = dh * tanh_c
+        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+        dz[t] = torch.cat([(dc * g) * i * (1.0 - i),
+                           (dc * cp) * f * (1.0 - f),
+                           (dc * i) * (1.0 - g * g),
+                           do * o * (1.0 - o)], dim=-1).to(dtype)
+        dh = dz[t].to(acc) @ w
+        dc = dc * f
+    return dz, dh.to(dtype), dc.to(dtype)
 
 
 def fused_lstm_forward_ragged(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -349,17 +507,55 @@ def project_time_major(x: torch.Tensor, w_ih: torch.Tensor,
     return (x_tm @ w_ih.t()).view(T, B, -1) + bias
 
 
+class _LSTMLayerFused(torch.autograd.Function):
+    """One LSTM layer whose forward is K4 and whose backward is K5, then
+    the weight, bias and input gradients as ``torch.matmul`` in f32: the
+    JAX package's ``lstm_layer_fused`` ``custom_vjp`` (``_fwd``/``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, h0, c0, w_ih, w_hh, bias):
+        x_proj = project_time_major(x, w_ih, bias)
+        out, (gates, c_prev), (h_t, c_t) = fused_lstm_forward(
+            x_proj, w_hh, h0, c0, with_gates=True)
+        ctx.save_for_backward(x, h0, w_ih, w_hh, out, gates, c_prev)
+        ctx.dtypes = (c0.dtype, bias.dtype)
+        return out, h_t, c_t
+
+    @staticmethod
+    def backward(ctx, d_out, d_h_t, d_c_t):
+        x, h0, w_ih, w_hh, out, gates, c_prev = ctx.saved_tensors
+        c0_dtype, bias_dtype = ctx.dtypes
+        dz, dh0, dc0 = fused_lstm_backward(gates, c_prev, d_out, w_hh,
+                                           d_h_t, d_c_t)
+        T, B, G = dz.shape
+        acc = _acc(gates.dtype)
+        dz = dz.to(acc).reshape(T * B, G)
+        h_prev = torch.cat([h0.to(acc)[None], out[:-1].to(acc)])
+        x_tm = x.transpose(0, 1).reshape(T * B, -1).to(acc)
+        d_w_hh = dz.t() @ h_prev.reshape(T * B, -1)
+        d_w_ih = dz.t() @ x_tm
+        d_x = (dz @ w_ih.to(acc)).view(T, B, -1).transpose(0, 1)
+        return (d_x.to(x.dtype), dh0.to(h0.dtype), dc0.to(c0_dtype),
+                d_w_ih.to(w_ih.dtype), d_w_hh.to(w_hh.dtype),
+                dz.sum(0).to(bias_dtype))
+
+
 def lstm_layer_fused(x: torch.Tensor, state: LSTMState, w_ih: torch.Tensor,
                      w_hh: torch.Tensor, bias: torch.Tensor
                      ) -> Tuple[torch.Tensor, LSTMState]:
-    """One LSTM layer through K1: ``x (B, T, in)`` -> ``(out (B, T, H),
-    (h_T, c_T))``; ``out`` is a batch-major view of the kernel's
-    time-major output."""
+    """One LSTM layer: ``x (B, T, in)`` -> ``(out (B, T, H), (h_T,
+    c_T))``; ``out`` is a batch-major view of the kernel's time-major
+    output. When autograd needs a gradient of any input, the forward is
+    K4 and the backward K5; otherwise the forward is K1 and nothing is
+    kept for a backward. DropConnect, if any, is already in ``w_hh``."""
+    dtype = torch.result_type(x, w_ih)
+    h0, c0 = (s.to(dtype).contiguous() for s in state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, h0, c0, w_ih, w_hh, bias)):
+        out, h_t, c_t = _LSTMLayerFused.apply(x, h0, c0, w_ih, w_hh, bias)
+        return out.transpose(0, 1), (h_t, c_t)
     x_proj = project_time_major(x, w_ih, bias)
-    dtype = x_proj.dtype
-    h0, c0 = state
-    out, st = fused_lstm_forward(x_proj, w_hh, h0.to(dtype).contiguous(),
-                                 c0.to(dtype).contiguous())
+    out, st = fused_lstm_forward(x_proj, w_hh, h0, c0)
     return out.transpose(0, 1), st
 
 

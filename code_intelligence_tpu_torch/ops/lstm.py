@@ -27,7 +27,9 @@ def lstm_layer(x: torch.Tensor, state: LSTMState, w_ih: torch.Tensor,
                w_hh: torch.Tensor, bias: torch.Tensor
                ) -> Tuple[torch.Tensor, LSTMState]:
     """One LSTM layer over a window on any device: ``x (B, T, in)`` ->
-    ``(out (B, T, H), (h_T, c_T))``."""
+    ``(out (B, T, H), (h_T, c_T))``. Autograd through this loop is the
+    reference for the training path's K4 and K5; DropConnect is applied to
+    ``w_hh`` by the caller (``AWDLSTMEncoder``), as for the fused layer."""
     x_proj = project_time_major(x, w_ih, bias)
     dtype = x_proj.dtype
     h0, c0 = state

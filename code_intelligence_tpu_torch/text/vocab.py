@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Sequence, Union
 
@@ -25,6 +26,22 @@ class Vocab:
 
     def __len__(self) -> int:
         return len(self.itos)
+
+    @classmethod
+    def from_counts(cls, counts: "Counter[str]", max_vocab: int = 60000,
+                    min_freq: int = 2) -> "Vocab":
+        """Most-frequent-first vocab with the special tokens pinned to the
+        lowest ids, as the JAX package's ``Vocab.from_counts`` builds it."""
+        itos = list(R.SPECIALS)
+        seen = set(itos)
+        for tok, c in counts.most_common():
+            if len(itos) >= max_vocab:
+                break
+            if c < min_freq or tok in seen:
+                continue
+            itos.append(tok)
+            seen.add(tok)
+        return cls(itos)
 
     def numericalize(self, tokens: Sequence[str]) -> np.ndarray:
         unk = self.unk_id

@@ -150,3 +150,107 @@ def test_engines_match_plain_engine(cuda_device, tmp_path, scheduler,
     want = InferenceEngine.from_export(tmp_path, plain=True, **kw) \
         .embed_ids_batch(seqs, scheduler=scheduler)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+# K5 in bf16: dz is rounded to bf16 every step and feeds the next step's
+# product, so the two sides' summation orders can leave a value a few bf16
+# ulps apart (2^-7 relative each) at any magnitude: a relative bound too.
+K5_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 3e-2)}
+# The layer's gradients on the kernels against autograd through the plain
+# loop, by relative Frobenius norm: in f32 only the summation order
+# differs; in bf16 the plain loop's autograd also rounds its backward to
+# bf16 where K5 carries f32, so the two differ by a few bf16 ulps (2^-8).
+LAYER_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+SHAPES = [(7, 5, 40), (3, 33, 130), (1, 1, 8), (2, 17, 1030)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_k4_matches_plain(cuda_device, dtype, T, B, H):
+    args = _inputs(T, B, H, cuda_device, dtype)
+    before = K1.gates_launches.count
+    out, (gates, c_prev), (h, c) = K1.fused_lstm_forward(*args,
+                                                         with_gates=True)
+    torch.cuda.synchronize()
+    assert K1.gates_launches.count == before + T
+    ref = K1.fused_lstm_forward_plain(*args, with_gates=True)
+    got = (out, gates, c_prev, h, c)
+    want = (ref[0], *ref[1], *ref[2])
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= ATOL[dtype], err
+    # K1's instantiation is untouched: the same outputs without residuals
+    out1, (h1, c1) = K1.fused_lstm_forward(*args)
+    assert torch.equal(out1, out) and torch.equal(h1, h)
+    assert torch.equal(c1, c)
+
+
+def _k5_args(T, B, H, device, dtype, seed=0):
+    """K4's residuals from the plain version, and seeded cotangents."""
+    x, w, h, c = _inputs(T, B, H, device, dtype, seed)
+    _, (gates, c_prev), _ = K1.fused_lstm_forward_plain(x, w, h, c,
+                                                        with_gates=True)
+    rng = np.random.default_rng(seed + 1)
+    d_out, dh, dc = (torch.from_numpy(rng.normal(0, 1, s).astype(
+        np.float32)).to(device) for s in ((T, B, H), (B, H), (B, H)))
+    return gates, c_prev, d_out, w, dh, dc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_k5_matches_plain(cuda_device, dtype, T, B, H):
+    args = _k5_args(T, B, H, cuda_device, dtype)
+    dc_t = args[5].clone()
+    before = K1.backward_launches.count
+    got = K1.fused_lstm_backward(*args)
+    torch.cuda.synchronize()
+    assert K1.backward_launches.count == before + T + 1
+    assert torch.equal(args[5], dc_t)  # the caller's dc_T is not written
+    want = K1.fused_lstm_backward_plain(*args)
+    atol, rtol = K5_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_layer_grads_on_the_kernels_match_plain_autograd(cuda_device, dtype):
+    from code_intelligence_tpu_torch.ops.lstm import lstm_layer
+
+    B, T, n_in, H = 19, 9, 24, 130
+    rng = np.random.default_rng(3)
+    s = 1 / np.sqrt(H)
+    shapes = {"x": (B, T, n_in), "h0": (B, H), "c0": (B, H),
+              "w_ih": (4 * H, n_in), "w_hh": (4 * H, H), "bias": (4 * H,)}
+    base = {k: torch.from_numpy(rng.uniform(-s, s, v).astype(np.float32))
+            .to(cuda_device, dtype) for k, v in shapes.items()}
+    cot = [torch.from_numpy(rng.normal(0, 1, v).astype(np.float32))
+           .to(cuda_device, dtype) for v in ((B, T, H), (B, H), (B, H))]
+    grads = []
+    counts = []
+    for layer in (K1.lstm_layer_fused, lstm_layer):
+        t = {k: v.clone().requires_grad_() for k, v in base.items()}
+        before = (K1.gates_launches.count, K1.backward_launches.count)
+        out, (h, c) = layer(t["x"], (t["h0"], t["c0"]), t["w_ih"],
+                            t["w_hh"], t["bias"])
+        torch.autograd.backward((out, h, c), cot)
+        torch.cuda.synchronize()
+        counts.append((K1.gates_launches.count - before[0],
+                       K1.backward_launches.count - before[1]))
+        grads.append({k: v.grad for k, v in t.items()})
+    assert counts == [(T, T + 1), (0, 0)]
+    for k in shapes:
+        assert _rel(grads[0][k], grads[1][k]) <= LAYER_GRAD_REL[dtype], k
