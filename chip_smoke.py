@@ -21,14 +21,21 @@ on failure (exit code 1, and no result line):
    K4 (forward with the training residuals) and K5 (its adjoint) at
    T=7/B=5/H=40 and at the training shapes T=67, B=104, H=2500 and H=800,
    and one layer's gradients through K4/K5 against autograd through the
-   plain loop (T=67, B=104, H=800).
+   plain loop (T=67, B=104, H=800). The QRNN forget-mult kernels: K6
+   (forward) and K7 (its adjoint) at T=7/B=5/H=40, the slot step (T=64,
+   B=32) and the training shape (T=67, B=104), H=2500 and H=800; K8
+   (ragged forward) at T=7/B=5/H=40 and the ragged step (T=16, B=32,
+   H=2500 and H=800) with the same valid lengths and a case with every row dead,
+   its tail equal to the frozen carry; and one QRNN layer's gradients
+   (window 2, T=67, B=104, in 800, H=2500) through K6/K7 against autograd
+   through the plain loop.
 4. Three serve paths on one flagship-width export (60,000-token vocab,
    emb 800, hidden 2500/2500/2500/800, bf16) made from a numpy seed. For
    each, the port's server on the card answers POST /text for the same 8
    issues of mixed length, including an empty body and one longer than
    512 tokens; every response must be 2400 finite float32 values equal,
-   within ``EMBED_ATOL``, to the same engine run on the card with the
-   plain encoder. The launch counters are zeroed just before a path's
+   within ``EMBED_REL`` of the largest plain value, to the same engine
+   run on the card with the plain encoder. The launch counters are zeroed just before a path's
    requests and read just after: its kernel must have run ``n_layers``
    launches per recurrence step the scheduler counted from its host
    staging blocks, and the other kernels none.
@@ -38,6 +45,9 @@ on failure (exit code 1, and no result line):
    * ``--scheduler ragged --precision int8`` (K3); its weight footprint
      must be at least 3x smaller than f32, and its largest difference
      from the bf16 embeddings is printed.
+   The same three paths then serve a flagship-width QRNN export (the
+   same widths, ``qrnn=True``), whose layers launch once per scheduler
+   step: K6 on slots, K8 on ragged and ragged + int8.
 5. Training at flagship width (bf16 compute, f32 master weights, B=104,
    bptt 67, the reference's dropouts) on a synthetic corpus from a numpy
    seed: a 60,000-token vocab and a stream cycling through 16 tokens with
@@ -52,7 +62,10 @@ on failure (exit code 1, and no result line):
    validation window, and K2, K3 none. The kernel-vs-plain window check
    runs again on the trained checkpoint, where the loss depends on the
    recurrence. The port's server then answers POST /text from the run's
-   ``encoder_export/`` with 2400 finite floats.
+   ``encoder_export/`` with 2400 finite floats. The same phase then
+   trains the QRNN LM through the CLI with ``--qrnn``: ``n_layers`` K6
+   and ``n_layers`` K7 launches a window, ``n_layers`` K6 for the
+   validation window, and no K1-K5.
 6. Timing with CUDA events, beside the least time the card could take
    and a library yardstick the port never calls: K1 at B=32, T=512,
    H=2500 in bf16 against cuDNN's ``torch.nn.LSTM`` on the same layer (it
@@ -63,15 +76,22 @@ on failure (exit code 1, and no result line):
    K4 and K5 at T=67, B=104, H=2500, bf16, against cuDNN's LSTM forward
    and its backward to the initial state only (no weight gradients; cuDNN
    still computes the input gradient), timed apart; ms per training
-   window and tokens/s from the CLI run's second host read.
+   window and tokens/s from the CLI run's second host read. K6 at the
+   slot step and the training shape, K7 at the training shape and K8 at
+   the ragged step, bf16, H=2500: their device time by ``torch.profiler``
+   after a flush of the L2 cache and back to back, and a whole call by
+   CUDA events, beside the bytes they must move over the HBM rate; no
+   single PyTorch call computes a forget-mult, so they have no library
+   yardstick.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
-when there is no CUDA device.
+The line before the last is one JSON object ``{"kernels": [...]}``
+(K1-K8); the last is ``{"ok": true, "device": {...}}``. Exits non-zero
+without a result when there is no CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import math
@@ -98,8 +118,10 @@ from code_intelligence_tpu_torch.models import (
 )
 from code_intelligence_tpu_torch.inference.engine import InferenceEngine
 from code_intelligence_tpu_torch.ops import _build
+from code_intelligence_tpu_torch.ops import forget_mult as FM
 from code_intelligence_tpu_torch.ops import fused_lstm as K1
 from code_intelligence_tpu_torch.ops.lstm import lstm_layer
+from code_intelligence_tpu_torch.ops.qrnn import qrnn_layer
 from code_intelligence_tpu_torch.ops.quantize import quantize_symmetric
 from code_intelligence_tpu_torch.serving.server import build_server
 from code_intelligence_tpu_torch.text import SPECIALS, Tokenizer, Vocab
@@ -119,9 +141,13 @@ REPO = Path(__file__).resolve().parent
 # difference can move a carry by one bf16 ulp (2^-8 near 1), which later
 # steps carry on.
 K1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# Served embedding vs the plain encoder, bf16 export: the bf16 carry
-# differences above, through four layers and the mean/max/last pooling.
-EMBED_ATOL = 5e-2
+# Served embedding vs the plain encoder (and ragged vs slots), bf16
+# export, as a share of the largest plain embedding value: a random-init
+# export's embeddings are small (largest ~3e-2 LSTM, ~1e-3 QRNN on the
+# H100), so an absolute bound could pass zeros. The bf16 carry
+# differences above, through four layers and the pooling, came to about
+# one bf16 step (2^-8) of that value; 2^-5 leaves eight.
+EMBED_REL = 2.0 ** -5
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and peak rate per input type
 # (f32 outside the tensor cores)
@@ -130,6 +156,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 FLAGSHIP = AWDLSTMConfig(vocab_size=60000, emb_sz=800, n_hid=2500,
                          n_layers=4, dtype="bfloat16")
+FLAGSHIP_QRNN = dataclasses.replace(FLAGSHIP, qrnn=True)
 
 WORDS = ("pipeline notebook kubeflow katib tfjob pod crash error when "
          "running the operator fails with timeout after upgrade to version "
@@ -322,19 +349,25 @@ def post(port: int, issue: dict):
         conn.close()
 
 
-# each serve path's kernel, by its launch counter
+# each serve path's kernel, by its launch counter: LSTM, then QRNN
 PATH_KERNEL = {("slots", "f32"): "K1", ("ragged", "f32"): "K2",
                ("ragged", "int8"): "K3"}
+QRNN_PATH_KERNEL = {("slots", "f32"): "K6", ("ragged", "f32"): "K8",
+                    ("ragged", "int8"): "K8"}
 COUNTERS = {"K1": K1.launches, "K2": K1.ragged_launches,
             "K3": K1.ragged_int8_launches, "K4": K1.gates_launches,
-            "K5": K1.backward_launches}
+            "K5": K1.backward_launches, "K6": FM.forget_mult_launches,
+            "K7": FM.forget_mult_backward_launches,
+            "K8": FM.forget_mult_ragged_launches}
 
 
 def serve_phase(model_dir: Path, docs, scheduler: str,
-                precision: str = "f32"):
+                precision: str = "f32", cfg: AWDLSTMConfig = FLAGSHIP):
     """Serve the docs through the port's server on one path; returns
-    ``(summary, embeddings)``."""
-    kernel = PATH_KERNEL[(scheduler, precision)]
+    ``(summary, embeddings)``. An LSTM layer launches its kernel once per
+    recurrence step, a QRNN layer once per scheduler step."""
+    kernel = (QRNN_PATH_KERNEL if cfg.qrnn else PATH_KERNEL)[
+        (scheduler, precision)]
     t0 = time.perf_counter()
     srv = build_server(model_dir, device="cuda", batch_size=32,
                        host="127.0.0.1", port=0, scheduler=scheduler,
@@ -366,17 +399,17 @@ def serve_phase(model_dir: Path, docs, scheduler: str,
         srv.server_close()
         thread.join(timeout=60)
     got = np.stack(got)
-    if got.shape != (len(docs), 3 * FLAGSHIP.emb_sz) \
+    if got.shape != (len(docs), 3 * cfg.emb_sz) \
             or not np.isfinite(got).all():
         raise AssertionError(f"bad embeddings: shape {got.shape}")
-    want_launches = FLAGSHIP.n_layers * rec_steps
+    per_layer = steps if cfg.qrnn else rec_steps
+    want_launches = cfg.n_layers * per_layer
     others = {k: n for k, n in launches.items() if k != kernel and n}
     if steps == 0 or launches[kernel] != want_launches or others:
         raise AssertionError(
             f"{scheduler}/{precision}: launches {launches} over {steps} "
             f"steps; expected {want_launches} of {kernel} "
-            f"({FLAGSHIP.n_layers} layers x {rec_steps} recurrence steps) "
-            f"and no other kernel")
+            f"({cfg.n_layers} layers x {per_layer}) and no other kernel")
     weight_ratio = engine.weight_bytes_f32 / engine.weight_bytes
     del srv, engine, sched
     plain = InferenceEngine.from_export(model_dir, batch_size=32,
@@ -385,41 +418,51 @@ def serve_phase(model_dir: Path, docs, scheduler: str,
     want = plain.embed_issues(docs)
     del plain
     torch.cuda.empty_cache()
-    err = float(np.abs(got - want).max())
-    if err > EMBED_ATOL:
-        raise AssertionError(f"{scheduler}/{precision} served vs plain "
-                             f"encoder: max |diff| {err} > {EMBED_ATOL}")
+    err, scale, bound = embed_gate(f"{scheduler}/{precision} served vs "
+                                   f"plain encoder", got, want)
     return {"scheduler": scheduler, "precision": precision, "kernel": kernel,
             "boot_s": boot_s, "requests": len(docs), "steps": steps,
             "step_len": step_len, "recurrence_steps": rec_steps,
             "launches": launches[kernel], "launches_expected": want_launches,
             "request_ms": request_ms, "embed_max_abs_err": err,
-            "embed_atol": EMBED_ATOL,
+            "embed_plain_max_abs": scale, "embed_bound": bound,
             "weight_footprint_ratio": weight_ratio}, got
 
 
-def serve_paths(model_dir: Path, docs) -> dict:
+def embed_gate(what, got, want):
+    """``(max |got - want|, max |want|, bound)``; raises past the bound,
+    ``EMBED_REL`` times the largest value of ``want``."""
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    bound = EMBED_REL * scale
+    if not (scale > 0 and err <= bound):
+        raise AssertionError(f"{what}: max |diff| {err} > {bound} (largest "
+                             f"reference value {scale})")
+    return err, scale, bound
+
+
+def serve_paths(model_dir: Path, docs, cfg: AWDLSTMConfig = FLAGSHIP,
+                tag: str = "") -> dict:
     """Phase 4: the three serve paths, each against its plain engine; the
-    ragged one also against the slots one."""
-    slots, emb_slots = serve_phase(model_dir, docs, "slots")
-    print(json.dumps({"serve_slots": slots}), flush=True)
-    ragged, emb_ragged = serve_phase(model_dir, docs, "ragged")
+    ragged one also against the slots one. Keyed by each path's kernel."""
+    slots, emb_slots = serve_phase(model_dir, docs, "slots", cfg=cfg)
+    print(json.dumps({f"serve{tag}_slots": slots}), flush=True)
+    ragged, emb_ragged = serve_phase(model_dir, docs, "ragged", cfg=cfg)
     ragged["vs_slots_max_abs_err"] = float(np.abs(emb_ragged
                                                   - emb_slots).max())
-    print(json.dumps({"serve_ragged": ragged}), flush=True)
-    if ragged["vs_slots_max_abs_err"] > EMBED_ATOL:
-        raise AssertionError(f"ragged vs slots server: max |diff| "
-                             f"{ragged['vs_slots_max_abs_err']} > "
-                             f"{EMBED_ATOL}")
-    int8, emb_int8 = serve_phase(model_dir, docs, "ragged", "int8")
+    print(json.dumps({f"serve{tag}_ragged": ragged}), flush=True)
+    embed_gate("ragged vs slots server", emb_ragged, emb_slots)
+    int8, emb_int8 = serve_phase(model_dir, docs, "ragged", "int8", cfg)
     # quantization error, printed and not gated (int8_check.py gates its
     # band on the small engine)
     int8["vs_bf16_max_abs_diff"] = float(np.abs(emb_int8 - emb_slots).max())
-    print(json.dumps({"serve_ragged_int8": int8}), flush=True)
+    int8["vs_bf16_rel"] = (int8["vs_bf16_max_abs_diff"]
+                           / float(np.abs(emb_slots).max()))
+    print(json.dumps({f"serve{tag}_ragged_int8": int8}), flush=True)
     if int8["weight_footprint_ratio"] < 3.0:
         raise AssertionError(f"int8 weight footprint ratio "
                              f"{int8['weight_footprint_ratio']} < 3")
-    return {"K1": slots, "K2": ragged, "K3": int8}
+    return {"slots": slots, "ragged": ragged, "ragged_int8": int8}
 
 
 def timing_phase() -> dict:
@@ -667,13 +710,14 @@ def write_corpus(root: Path) -> Vocab:
     return vocab
 
 
-def window_check(corpus_dir: Path, ckpt_dir: Path | None = None) -> dict:
+def window_check(corpus_dir: Path, ckpt_dir: Path | None = None,
+                 cfg: AWDLSTMConfig = FLAGSHIP) -> dict:
     """The first training window's loss and gradients at flagship width,
-    bf16, with the reference's dropouts: the kernel path (K4, K5) against
-    the plain path (autograd through the plain loop) on the same weights
-    and the same masks. The weights are the seed's, or with ``ckpt_dir``
-    the trained checkpoint's (its carried states too)."""
-    cfg = FLAGSHIP
+    bf16, with the reference's dropouts: the kernel path (K4 and K5, or
+    for QRNN K6 and K7) against the plain path (autograd through the plain
+    loops) on the same weights and the same masks. The weights are the
+    seed's, or with ``ckpt_dir`` the trained checkpoint's (its carried
+    states too)."""
     trainer = LMTrainer(cfg, TrainConfig(batch_size=TRAIN_BS,
                                          bptt=TRAIN_BPTT), device="cuda")
     state = trainer.init_state(SEED)
@@ -712,12 +756,12 @@ def window_check(corpus_dir: Path, ckpt_dir: Path | None = None) -> dict:
     return result
 
 
-def training_phase(root: Path) -> dict:
+def training_phase(root: Path, cfg: AWDLSTMConfig = FLAGSHIP) -> dict:
     """Phase 6: the port's training CLI at flagship width, then its
     export served. Every launch counter is zeroed just before the CLI."""
     corpus_dir, model_dir = root / "corpus", root / "run"
     write_corpus(corpus_dir)
-    window = window_check(corpus_dir)
+    window = window_check(corpus_dir, cfg=cfg)
     print(json.dumps({"train_window_check_init": window}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
@@ -726,11 +770,12 @@ def training_phase(root: Path) -> dict:
     t0 = time.perf_counter()
     summary = train_cli.main([
         "--corpus_dir", str(corpus_dir), "--model_dir", str(model_dir),
-        "--emb_sz", str(FLAGSHIP.emb_sz), "--n_hid", str(FLAGSHIP.n_hid),
-        "--n_layers", str(FLAGSHIP.n_layers),
+        "--emb_sz", str(cfg.emb_sz), "--n_hid", str(cfg.n_hid),
+        "--n_layers", str(cfg.n_layers),
         "--bf16", "--bs", str(TRAIN_BS), "--bptt", str(TRAIN_BPTT),
         "--lr", str(TRAIN_LR), "--steps_per_dispatch", str(PER_DISPATCH),
-        "--seed", str(SEED), "--device", "cuda"])
+        "--seed", str(SEED), "--device", "cuda",
+        *(["--qrnn"] if cfg.qrnn else [])])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k: c.count for k, c in COUNTERS.items()}
@@ -738,10 +783,15 @@ def training_phase(root: Path) -> dict:
              (model_dir / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in steps if r["kind"] == "step"]
     losses = [r["loss"] for r in steps]
-    n_layers = FLAGSHIP.n_layers
-    want = {"K4": n_layers * TRAIN_BPTT * TRAIN_WINDOWS,
-            "K5": n_layers * (TRAIN_BPTT + 1) * TRAIN_WINDOWS,
-            "K1": n_layers * TRAIN_BPTT * 1, "K2": 0, "K3": 0}
+    n_layers = cfg.n_layers
+    want = dict.fromkeys(COUNTERS, 0)
+    if cfg.qrnn:  # a launch per layer call: each window, and validation
+        want.update(K6=n_layers * (TRAIN_WINDOWS + 1),
+                    K7=n_layers * TRAIN_WINDOWS)
+    else:
+        want.update(K4=n_layers * TRAIN_BPTT * TRAIN_WINDOWS,
+                    K5=n_layers * (TRAIN_BPTT + 1) * TRAIN_WINDOWS,
+                    K1=n_layers * TRAIN_BPTT * 1)
     if len(losses) != TRAIN_WINDOWS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"window losses {losses}")
     if not losses[-1] < losses[0]:
@@ -758,12 +808,12 @@ def training_phase(root: Path) -> dict:
               "tokens_per_s": TRAIN_BS * TRAIN_BPTT / window_s,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     result["window_check_trained"] = window_check(corpus_dir,
-                                                  model_dir / "ckpt")
-    result["served"] = serve_trained(model_dir / "encoder_export")
+                                                  model_dir / "ckpt", cfg)
+    result["served"] = serve_trained(model_dir / "encoder_export", cfg)
     return result
 
 
-def serve_trained(export: Path) -> dict:
+def serve_trained(export: Path, cfg: AWDLSTMConfig = FLAGSHIP) -> dict:
     """The port's server answers POST /text from the trained export."""
     srv = build_server(export, device="cuda", batch_size=32,
                        host="127.0.0.1", port=0)
@@ -782,7 +832,7 @@ def serve_trained(export: Path) -> dict:
         srv.server_close()
         thread.join(timeout=60)
     got = np.stack(got)
-    if got.shape != (len(docs), 3 * FLAGSHIP.emb_sz) \
+    if got.shape != (len(docs), 3 * cfg.emb_sz) \
             or not np.isfinite(got).all():
         raise AssertionError(f"trained export served bad embeddings: "
                              f"shape {got.shape}")
@@ -846,6 +896,214 @@ def train_timing_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The QRNN slice: the forget-mult kernels K6 (forward), K7 (adjoint) and K8
+# (ragged forward)
+# ---------------------------------------------------------------------------
+
+# K6-K8 vs plain, as (atol, rtol): both sides compute each element with the
+# same f32 operations in the same order (the kernels use unfused _rn
+# intrinsics), so they should agree exactly; the bounds allow one f32 ulp,
+# which in bf16 can tip one rounding of a stored value (2^-8 relative).
+FM_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2.0 ** -7)}
+QRNN_SERVE_STEP = (64, 32)  # the slot step (T, B); the ragged step is T=16
+
+
+def fm_inputs(T, B, H, dtype, seed=SEED):
+    """Time-major z in (-1, 1), f in (0, 1), h0 and a cotangent g."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    z = torch.tanh(torch.randn((T, B, H), generator=g, device=dev))
+    f = torch.sigmoid(1.5 * torch.randn((T, B, H), generator=g, device=dev))
+    h0 = torch.randn((B, H), generator=g, device=dev) * 0.5
+    cot = torch.randn((T, B, H), generator=g, device=dev)
+    return [t.to(dtype).contiguous() for t in (z, f, h0, cot)]
+
+
+def _fm_err(got, want, dtype, what) -> float:
+    atol, rtol = FM_TOL[dtype]
+    for a, b in zip(got, want):
+        if not torch.isfinite(a.float()).all().item():
+            raise AssertionError(f"{what} gave non-finite values")
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{what}: {m}")
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def check_qrnn_layer_grads(T, B, n_in, H, dtype) -> float:
+    """``qrnn_layer`` (window 2, h0 and x_prev; K6 forward, K7 backward)
+    against autograd through the plain loop; the largest relative error
+    over the five gradients."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    s = 1.0 / H ** 0.5
+    shapes = {"x": (B, T, n_in), "h0": (B, H), "x_prev": (B, n_in),
+              "w": (3 * H, 2 * n_in), "b": (3 * H,)}
+    base = {k: ((torch.rand(v, generator=g, device="cuda") * 2 - 1)
+                * (s if k in ("w", "b") else 1)).to(dtype)
+            for k, v in shapes.items()}
+    cot = [torch.randn(v, generator=g, device="cuda").to(dtype)
+           for v in ((B, T, H), (B, H))]
+    grads = []
+    for plain in (False, True):
+        t = {k: v.clone().requires_grad_() for k, v in base.items()}
+        out, h_t = qrnn_layer(t["x"], {"w": t["w"], "b": t["b"]},
+                              h0=t["h0"], window=2, x_prev=t["x_prev"],
+                              plain=plain)
+        torch.autograd.backward((out, h_t), cot)
+        grads.append({k: v.grad for k, v in t.items()})
+    torch.cuda.synchronize()
+    rel = max(_rel(grads[0][k], grads[1][k]) for k in shapes)
+    if not rel <= GRAD_REL[dtype]:
+        raise AssertionError(f"QRNN layer grads on K6/K7 vs plain autograd "
+                             f"{dtype}: relative error {rel} > "
+                             f"{GRAD_REL[dtype]}")
+    return rel
+
+
+def qrnn_kernel_checks() -> dict:
+    """K6 and K7 against their plain versions at a small odd shape, the
+    slot step and the training shapes; K8 at the ragged step with valid
+    lengths of 0, 1, mid and full and with every row dead, its tail equal
+    to the frozen carry; one layer's gradients through K6/K7."""
+    errs = {"K6": {}, "K7": {}, "K8": {}, "layer_grad_rel": {}}
+    shapes = ((7, 5, 40), (*QRNN_SERVE_STEP, 2500), (*QRNN_SERVE_STEP, 800),
+              (TRAIN_BPTT, TRAIN_BS, 2500), (TRAIN_BPTT, TRAIN_BS, 800))
+    for T, B, H in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
+            z, f, h0, cot = fm_inputs(T, B, H, dtype)
+            out = FM.forget_mult_forward(z, f, h0)
+            grads = FM.forget_mult_backward(z, f, out, h0, cot)
+            torch.cuda.synchronize()
+            errs["K6"][key] = _fm_err(
+                [out], [FM.forget_mult_forward_plain(z, f, h0)], dtype,
+                f"K6 {key}")
+            errs["K7"][key] = _fm_err(
+                grads, FM.forget_mult_backward_plain(z, f, out, h0, cot),
+                dtype, f"K7 {key}")
+            print(f"K6/K7 vs plain {key}: max |diff| {errs['K6'][key]:.3g} "
+                  f"/ {errs['K7'][key]:.3g}", flush=True)
+    for T, B, H in ((7, 5, 40), (16, 32, 2500), (16, 32, 800)):
+        cases = {**valid_cases(T, B), "all_dead": [0] * B}
+        for dtype in (torch.float32, torch.bfloat16):
+            z, f, h0, _ = fm_inputs(T, B, H, dtype)
+            for case, valid in cases.items():
+                key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}_{case}"
+                vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+                out = FM.forget_mult_ragged(z, f, h0, vl)
+                torch.cuda.synchronize()
+                errs["K8"][key] = _fm_err(
+                    [out], [FM.forget_mult_ragged_plain(z, f, h0, vl)],
+                    dtype, f"K8 {key}")
+                for b, v in enumerate(valid):
+                    frozen = out[v - 1, b] if v else h0[b]
+                    if not torch.equal(out[v:, b], frozen.expand(T - v, H)):
+                        raise AssertionError(f"K8 {key}: row {b}'s tail is "
+                                             f"not its frozen carry")
+                print(f"K8 vs plain {key}: max |diff| "
+                      f"{errs['K8'][key]:.3g}", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = (f"T{TRAIN_BPTT}_B{TRAIN_BS}_in800_H2500_"
+               f"{str(dtype).split('.')[-1]}")
+        errs["layer_grad_rel"][key] = check_qrnn_layer_grads(
+            TRAIN_BPTT, TRAIN_BS, 800, 2500, dtype)
+        print(f"QRNN layer grads vs plain autograd {key}: relative "
+              f"{errs['layer_grad_rel'][key]:.3g}", flush=True)
+    return errs
+
+
+def fm_bound_ms(T, B, H, dtype, kernel, valid=None):
+    """The least time for one call. Bytes: K6 reads z, f and h0 and writes
+    out; K8 reads z and f only for the live (step, row) pairs of these
+    lengths, plus h0 and the lengths, and writes all of out; K7 reads z,
+    f, out, g and h0 and writes dz, df and dh0. Operations: 4 f32
+    operations per element and step forward, 7 backward, at the CUDA
+    cores' f32 rate (they never reach it: the bytes bound them)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    tbh, bh = T * B * H, B * H
+    if kernel == "K7":
+        n_bytes, n_ops = (6 * tbh + 2 * bh) * item, 7 * tbh
+    elif kernel == "K8":
+        live = sum(min(int(v), T) for v in valid) * H
+        n_bytes, n_ops = (2 * live + tbh + bh) * item + 4 * B, 4 * live
+    else:
+        n_bytes, n_ops = (3 * tbh + bh) * item, 4 * tbh
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_FLOPS[torch.float32] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_mb": n_bytes / 1e6,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def device_ms(fn, kernel: str, reps: int, before=None) -> float:
+    """Mean device time of the CUDA kernel whose name holds ``kernel`` over
+    ``reps`` calls of ``fn``, read from ``torch.profiler``; ``before`` runs
+    ahead of each call (an L2 flush) and is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    if sum(e.count for e in events) != reps:
+        raise AssertionError(f"the profiler saw {[e.key for e in events]} "
+                             f"for {reps} launches of {kernel}")
+    return sum(e.device_time_total for e in events) / reps / 1e3
+
+
+def qrnn_timing_phase() -> dict:
+    """K6 at the slot step and the training shape, K7 at the training
+    shape, K8 at the ragged step (seeded lengths in [1, 16], one full row),
+    all bf16 at H=2500. A launch takes less time on the card than its
+    wrapper takes on the host, so CUDA events around a call time the host:
+    ``ms`` is the kernel's device time by the profiler, each launch after a
+    256 MB write has pushed its inputs out of the 50 MB L2, as the bound
+    assumes; ``ms_warm`` the same back to back on the same inputs;
+    ``ms_call`` a whole call on an idle card by CUDA events, the wrapper's
+    host time included."""
+    dtype, H = torch.bfloat16, 2500
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    valid = [int(v) for v in rng.integers(1, 17, 32)]
+    valid[0] = 16
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    cases = {
+        "K6_slot_step": ("K6", (*QRNN_SERVE_STEP, H), None),
+        "K6_train": ("K6", (TRAIN_BPTT, TRAIN_BS, H), None),
+        "K7_train": ("K7", (TRAIN_BPTT, TRAIN_BS, H), None),
+        "K8_ragged_step": ("K8", (16, 32, H), valid),
+    }
+    out = {"dtype": "bfloat16", "ragged_valid_lens": valid}
+    for name, (kernel, (T, B, Hh), lens) in cases.items():
+        z, f, h0, cot = fm_inputs(T, B, Hh, dtype, seed=SEED + 10)
+        h = FM.forget_mult_forward(z, f, h0)
+        fn, plain = {
+            "K6": (lambda: FM.forget_mult_forward(z, f, h0),
+                   lambda: FM.forget_mult_forward_plain(z, f, h0)),
+            "K7": (lambda: FM.forget_mult_backward(z, f, h, h0, cot),
+                   lambda: FM.forget_mult_backward_plain(z, f, h, h0, cot)),
+            "K8": (lambda: FM.forget_mult_ragged(z, f, h0, vl),
+                   lambda: FM.forget_mult_ragged_plain(z, f, h0, vl)),
+        }[kernel]
+        cu_name = "forget_mult_bwd" if kernel == "K7" else "forget_mult_fwd"
+        out[name] = {
+            "kernel": kernel, "shape": {"T": T, "B": B, "H": Hh},
+            "ms": device_ms(fn, cu_name, 20, before=flush.zero_),
+            "ms_warm": device_ms(fn, cu_name, 50),
+            "ms_call": cuda_ms_each(flush.zero_, lambda _: fn(), reps=20),
+            "plain_ms": cuda_ms(plain, reps=3),
+            **fm_bound_ms(T, B, Hh, dtype, kernel, lens),
+            "library_ms": None}
+    del flush
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -864,6 +1122,7 @@ def main() -> int:
         phase = "kernel vs plain"
         errs = kernel_checks()
         train_errs = training_kernel_checks()
+        qrnn_errs = qrnn_kernel_checks()
 
         phase = "serve"
         rng = np.random.default_rng(SEED)
@@ -877,10 +1136,22 @@ def main() -> int:
                   flush=True)
             serve = serve_paths(Path(tmp), docs)
 
+        phase = "serve QRNN"
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            export_encoder(tmp, random_encoder_arrays(FLAGSHIP_QRNN, SEED),
+                           FLAGSHIP_QRNN, flagship_vocab(docs))
+            qrnn_serve = serve_paths(Path(tmp), docs, FLAGSHIP_QRNN,
+                                     "_qrnn")
+
         phase = "train"
         with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
             train = training_phase(Path(tmp))
         print(json.dumps({"train": train}), flush=True)
+
+        phase = "train QRNN"
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            qrnn_train = training_phase(Path(tmp), FLAGSHIP_QRNN)
+        print(json.dumps({"train_qrnn": qrnn_train}), flush=True)
 
         phase = "timing"
         timing = timing_phase()
@@ -889,6 +1160,8 @@ def main() -> int:
         print(json.dumps({"ragged_timing": ragged_timing}), flush=True)
         train_timing = train_timing_phase()
         print(json.dumps({"train_timing": train_timing}), flush=True)
+        qrnn_timing = qrnn_timing_phase()
+        print(json.dumps({"qrnn_timing": qrnn_timing}), flush=True)
     except Exception as e:  # any failed phase fails the run
         print(f"chip_smoke: phase '{phase}' failed: {e!r}", file=sys.stderr)
         raise
@@ -899,7 +1172,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": replaces + "286",
-        "launches": serve["K1"]["launches"],
+        "launches": serve["slots"]["launches"],
         "max_abs_err": max(errs["K1"].values()),
         "max_abs_err_by_case": errs["K1"],
         "ms": timing["ms"],
@@ -909,15 +1182,16 @@ def main() -> int:
         "library_ms": timing["library_ms"],
         "timed_shape": timing["shape"],
     }]
-    for name, fn, line in (("K2", "fused_lstm_forward_ragged", "457"),
-                           ("K3", "fused_lstm_forward_ragged_int8", "661")):
+    for name, fn, line, path in (
+            ("K2", "fused_lstm_forward_ragged", "457", "ragged"),
+            ("K3", "fused_lstm_forward_ragged_int8", "661", "ragged_int8")):
         t = ragged_timing[name]
         kernels.append({
             "name": fn,
             "route": "cuda",
             "source": source,
             "replaces": replaces + line,
-            "launches": serve[name]["launches"],
+            "launches": serve[path]["launches"],
             "max_abs_err": max(errs[name].values()),
             "max_abs_err_by_case": errs[name],
             "ms": t["ms"],
@@ -945,6 +1219,36 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": train_timing["library"][name],
             "timed_shape": train_timing["shape"],
+        })
+    # K6 runs on the QRNN slots path and in QRNN training (windows and
+    # validation), K7 in training, K8 on both ragged paths
+    qrnn_launches = {
+        "K6": {"serve_slots": qrnn_serve["slots"]["launches"],
+               "train": qrnn_train["launches"]["K6"]},
+        "K7": {"train": qrnn_train["launches"]["K7"]},
+        "K8": {"serve_ragged": qrnn_serve["ragged"]["launches"],
+               "serve_ragged_int8": qrnn_serve["ragged_int8"]["launches"]}}
+    for name, fn, line, timed in (
+            ("K6", "forget_mult_forward", "207", "K6_train"),
+            ("K7", "forget_mult_backward", "276", "K7_train"),
+            ("K8", "forget_mult_forward_ragged", "239", "K8_ragged_step")):
+        t = qrnn_timing[timed]
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": "code_intelligence_tpu_torch/csrc/forget_mult.cu",
+            "replaces": f"code_intelligence_tpu/ops/pallas_qrnn.py:{line}",
+            "launches": sum(qrnn_launches[name].values()),
+            "launches_by_path": qrnn_launches[name],
+            "max_abs_err": max(qrnn_errs[name].values()),
+            "max_abs_err_by_case": qrnn_errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a forget-mult",
+            "timed_shape": {**t["shape"], "dtype": "bfloat16"},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

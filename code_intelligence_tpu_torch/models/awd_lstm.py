@@ -1,16 +1,20 @@
 """AWD-LSTM encoder and language model.
 
-Port of the LSTM branches of the JAX package's ``models/awd_lstm.py``:
-``AWDLSTMEncoder`` (embedding gather, then N stacked LSTM layers, each an
-input projection plus a fused recurrence from ``ops/fused_lstm.py``) and
-``AWDLSTMLM`` (the encoder plus the tied decoder). The layers are routed
-as the JAX encoder routes its Pallas branches:
+Port of the JAX package's ``models/awd_lstm.py``: ``AWDLSTMEncoder``
+(embedding gather, then N stacked recurrent layers) and ``AWDLSTMLM`` (the
+encoder plus the tied decoder). An LSTM layer is an input projection plus
+a fused recurrence from ``ops/fused_lstm.py``, routed as the JAX encoder
+routes its Pallas branches:
 
 * ``precision="int8"``: K3 (int8 ``W_hh``, per-row scales), always;
 * f32/bf16 weights with ``valid_lens``: K2 (the ragged scheduler);
 * f32/bf16 weights without: ``lstm_layer_fused``, which runs K4 and K5
   when autograd needs gradients (training) and K1 otherwise (the dense
   ``slots`` and ``groups`` paths, evaluation).
+
+A QRNN layer (``qrnn=True``) is ``ops/qrnn.py::qrnn_layer``: K8 with
+``valid_lens``, otherwise K6 (and K7 in training), under int8 on its gate
+weight dequantized in the compute dtype.
 
 Training uses the five AWD dropouts, each with one mask per window
 (:func:`draw_dropout_masks`). The sequence-parallel axis is not ported.
@@ -31,6 +35,7 @@ from code_intelligence_tpu_torch.ops.fused_lstm import (
     lstm_layer_fused_ragged_int8,
 )
 from code_intelligence_tpu_torch.ops.lstm import LSTMState, lstm_layer
+from code_intelligence_tpu_torch.ops.qrnn import qrnn_layer
 from code_intelligence_tpu_torch.ops.quantize import SCALE_SUFFIX
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -40,8 +45,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class AWDLSTMConfig:
     """Reads every key of the JAX package's ``model_config.json``.
 
-    ``lstm_use_pallas`` is accepted and ignored: the port has one kernel
-    path on CUDA. The dropout rates are used in training only.
+    ``lstm_use_pallas`` and ``qrnn_use_pallas`` are accepted and ignored:
+    the port has one kernel path on CUDA. The dropout rates are used in
+    training only.
     ``precision="int8"`` is the serve-path weight precision that the
     engine sets when it quantizes at load (``ops/quantize.py``).
     """
@@ -66,10 +72,6 @@ class AWDLSTMConfig:
     precision: str = "f32"
 
     def __post_init__(self):
-        if self.qrnn:
-            raise NotImplementedError(
-                "qrnn=True is not ported yet (ROADMAP.md queue 1 item 10, "
-                "with kernels K6-K8)")
         if self.precision not in ("f32", "int8"):
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.dtype not in _DTYPES:
@@ -89,23 +91,31 @@ class AWDLSTMConfig:
     def layer_in_dim(self, layer: int) -> int:
         return self.emb_sz if layer == 0 else self.n_hid
 
+    def qrnn_window(self, layer: int) -> int:
+        """The QRNN convolution's width: 2 for layer 0, 1 above it."""
+        return 2 if layer == 0 else 1
+
 
 def init_lstm_states(config: AWDLSTMConfig, batch_size: int,
                      device="cpu") -> Tuple[LSTMState, ...]:
-    """Zero ``(h, c)`` per layer, each ``(batch_size, H)`` in the compute
-    dtype."""
+    """Zero carried state per layer in the compute dtype: LSTM ``(h, c)``,
+    each ``(batch_size, H)``; QRNN ``(h, x_prev)``, ``x_prev`` the layer's
+    last input ``(batch_size, in_dim)``."""
     states = []
     for li in range(config.n_layers):
         h = torch.zeros((batch_size, config.layer_size(li)),
                         dtype=config.torch_dtype, device=device)
-        states.append((h, torch.zeros_like(h)))
+        second = (h.new_zeros((batch_size, config.layer_in_dim(li)))
+                  if config.qrnn else torch.zeros_like(h))
+        states.append((h, second))
     return tuple(states)
 
 
 def random_encoder_arrays(config: AWDLSTMConfig, seed: int = 0) -> dict:
     """Random f32 encoder weights in the export's flat layout, from a numpy
     seed, with the JAX package's init ranges: U(-0.1, 0.1) for the
-    embedding and U(-1/sqrt(H), 1/sqrt(H)) for each LSTM tensor."""
+    embedding and U(-1/sqrt(H), 1/sqrt(H)) for each LSTM tensor and QRNN
+    gate weight (QRNN biases are zeros)."""
     rng = np.random.default_rng(seed)
 
     def uniform(scale, shape):
@@ -115,6 +125,11 @@ def random_encoder_arrays(config: AWDLSTMConfig, seed: int = 0) -> dict:
     for li in range(config.n_layers):
         H, in_dim = config.layer_size(li), config.layer_in_dim(li)
         s = 1.0 / float(np.sqrt(H))
+        if config.qrnn:
+            arrays[f"qrnn_{li}_w"] = uniform(
+                s, (3 * H, config.qrnn_window(li) * in_dim))
+            arrays[f"qrnn_{li}_b"] = np.zeros((3 * H,), np.float32)
+            continue
         arrays[f"lstm_{li}_w_ih"] = uniform(s, (4 * H, in_dim))
         arrays[f"lstm_{li}_w_hh"] = uniform(s, (4 * H, H))
         arrays[f"lstm_{li}_bias"] = uniform(s, (4 * H,))
@@ -131,7 +146,8 @@ def draw_dropout_masks(config: AWDLSTMConfig, batch_size: int,
     * ``input`` ``(B, 1, emb_sz)``, ``hidden_{i}`` ``(B, 1, H_i)`` for all
       but the last layer, ``output`` ``(B, 1, emb_sz)``: locked dropout,
       one mask reused across time;
-    * ``weight_{i}`` ``(4H_i, H_i)``: DropConnect on layer i's ``W_hh``.
+    * ``weight_{i}``: DropConnect on layer i's ``W_hh`` ``(4H_i, H_i)``,
+      or on a QRNN layer's gate weight ``(3H_i, window * in_dim)``.
     """
     def keep(p, *shape):
         return torch.rand(shape, generator=generator, device=device) < 1 - p
@@ -145,7 +161,9 @@ def draw_dropout_masks(config: AWDLSTMConfig, batch_size: int,
     for li in range(cfg.n_layers):
         H = cfg.layer_size(li)
         if cfg.weight_p > 0:
-            masks[f"weight_{li}"] = keep(cfg.weight_p, 4 * H, H)
+            masks[f"weight_{li}"] = keep(cfg.weight_p, *(
+                (3 * H, cfg.qrnn_window(li) * cfg.layer_in_dim(li))
+                if cfg.qrnn else (4 * H, H)))
         if li < cfg.n_layers - 1 and cfg.hidden_p > 0:
             masks[f"hidden_{li}"] = keep(cfg.hidden_p, batch_size, 1, H)
     if cfg.output_p > 0:
@@ -160,15 +178,16 @@ def _scaled(keep: torch.Tensor, p: float, dtype: torch.dtype):
 
 
 class AWDLSTMEncoder(nn.Module):
-    """Embedding + stacked LSTM layers, in the config's dtype.
+    """Embedding + stacked LSTM or QRNN layers, in the config's dtype.
 
     Parameter names are the export's flat keys (``embedding``,
-    ``lstm_{i}_w_ih|w_hh|bias``). Under ``precision="int8"`` the embedding
-    and the layers' ``w_ih`` and ``w_hh`` are int8 codes, each with an f32
-    ``<name>_scale`` sibling (``ops/quantize.py``); biases stay in the
-    compute dtype. ``plain=True`` runs each recurrence through its kernel's
-    plain PyTorch version on any device; it is the reference the kernel
-    path is held against on the card.
+    ``lstm_{i}_w_ih|w_hh|bias``, or ``qrnn_{i}_w|b``). Under
+    ``precision="int8"`` the embedding and the layers' matmul weights are
+    int8 codes, each with an f32 ``<name>_scale`` sibling
+    (``ops/quantize.py``); biases stay in the compute dtype. ``plain=True``
+    runs each recurrence through its kernel's plain PyTorch version on any
+    device; it is the reference the kernel path is held against on the
+    card.
 
     Frozen by default. ``trainable=True`` keeps f32 master weights that
     take gradients and are cast to the compute dtype in the forward, as
@@ -197,6 +216,14 @@ class AWDLSTMEncoder(nn.Module):
                     param(config.emb_sz, dtype=torch.float32))
         for li in range(config.n_layers):
             H, in_dim = config.layer_size(li), config.layer_in_dim(li)
+            if config.qrnn:
+                setattr(self, f"qrnn_{li}_w", param(
+                    3 * H, config.qrnn_window(li) * in_dim, dtype=wdtype))
+                setattr(self, f"qrnn_{li}_b", param(3 * H))
+                if self.int8:
+                    setattr(self, f"qrnn_{li}_w{SCALE_SUFFIX}",
+                            param(3 * H, dtype=torch.float32))
+                continue
             setattr(self, f"lstm_{li}_w_ih", param(4 * H, in_dim, dtype=wdtype))
             setattr(self, f"lstm_{li}_w_hh", param(4 * H, H, dtype=wdtype))
             setattr(self, f"lstm_{li}_bias", param(4 * H))
@@ -216,8 +243,10 @@ class AWDLSTMEncoder(nn.Module):
         0 past it and whose carry freezes there. ``t_live``, a host int at
         least ``min(T, max(valid_lens))``, lets them launch only the live
         steps; the caller knows the lengths on the host, so no layer
-        reads ``valid_lens`` back. An int8 encoder without ``valid_lens``
-        treats every token as live.
+        reads ``valid_lens`` back. An int8 LSTM encoder without
+        ``valid_lens`` treats every token as live. QRNN layers run K8 with
+        ``valid_lens`` (one launch, so ``t_live`` is not needed) and K6
+        without.
 
         ``masks`` (training, from :func:`draw_dropout_masks`) applies the
         embedding, input, DropConnect and hidden dropouts; the output
@@ -234,7 +263,7 @@ class AWDLSTMEncoder(nn.Module):
             # dequantize after the gather: only the (B, T, E) activation,
             # never the whole table
             x = x * getattr(self, "embedding" + SCALE_SUFFIX).to(dtype)
-            if valid_lens is None:
+            if valid_lens is None and not cfg.qrnn:
                 valid_lens = torch.full((B,), T, dtype=torch.int32,
                                         device=tokens.device)
         if "input" in masks:
@@ -243,6 +272,13 @@ class AWDLSTMEncoder(nn.Module):
             valid_lens = valid_lens.to(torch.int32).contiguous()
         new_states = []
         for li in range(cfg.n_layers):
+            if cfg.qrnn:
+                x, st = self._qrnn(li, x, states[li], valid_lens, masks)
+                if f"hidden_{li}" in masks:
+                    x = x * _scaled(masks[f"hidden_{li}"], cfg.hidden_p,
+                                    dtype)
+                new_states.append(st)
+                continue
             p = f"lstm_{li}_"
             w_ih, w_hh, bias = (getattr(self, p + n)
                                 for n in ("w_ih", "w_hh", "bias"))
@@ -267,6 +303,26 @@ class AWDLSTMEncoder(nn.Module):
                 x = x * _scaled(masks[f"hidden_{li}"], cfg.hidden_p, dtype)
             new_states.append(st)
         return x, tuple(new_states)
+
+    def _qrnn(self, li: int, x: torch.Tensor, state, valid_lens, masks):
+        """QRNN layer ``li`` on its input ``x``: ``(out, (h_T, x[:, -1]))``.
+        The gate weight is dequantized (int8) and weight-dropped in the
+        compute dtype, in the JAX encoder's order of operations."""
+        cfg = self.config
+        dtype = cfg.torch_dtype
+        w = getattr(self, f"qrnn_{li}_w").to(dtype)
+        if self.int8:
+            w = w * getattr(self, f"qrnn_{li}_w{SCALE_SUFFIX}").to(
+                dtype)[:, None]
+        if f"weight_{li}" in masks:
+            w = w * masks[f"weight_{li}"].to(dtype) / (1.0 - cfg.weight_p)
+        h0, x_prev = state
+        window = cfg.qrnn_window(li)
+        out, h_t = qrnn_layer(
+            x, {"w": w, "b": getattr(self, f"qrnn_{li}_b").to(dtype)},
+            h0=h0, window=window, x_prev=x_prev if window == 2 else None,
+            valid_lens=valid_lens, plain=self.plain)
+        return out, (h_t, x[:, -1])
 
 
 class AWDLSTMLM(nn.Module):

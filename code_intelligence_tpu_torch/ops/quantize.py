@@ -49,12 +49,16 @@ def quantize_symmetric(w, axis: int = 0) -> Tuple[np.ndarray, np.ndarray]:
 
 def quant_targets(config) -> Iterator[Tuple[str, int]]:
     """``(param name, channel axis)`` of every encoder weight that
-    quantizes: the embedding table and each LSTM layer's ``w_ih`` and
-    ``w_hh``. Biases stay f32."""
+    quantizes: the embedding table and each layer's matmul weights (LSTM
+    ``w_ih`` and ``w_hh``, or the QRNN gate weight ``w``). Biases stay
+    f32."""
     yield "embedding", EMBEDDING_AXIS
     for li in range(config.n_layers):
-        yield f"lstm_{li}_w_ih", WEIGHT_AXIS
-        yield f"lstm_{li}_w_hh", WEIGHT_AXIS
+        if config.qrnn:
+            yield f"qrnn_{li}_w", WEIGHT_AXIS
+        else:
+            yield f"lstm_{li}_w_ih", WEIGHT_AXIS
+            yield f"lstm_{li}_w_hh", WEIGHT_AXIS
 
 
 def quantize_encoder_params(params: Dict[str, Any],

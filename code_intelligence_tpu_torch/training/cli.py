@@ -22,8 +22,6 @@ from pathlib import Path
 # flags of the JAX CLI that the port does not take yet, with the ROADMAP
 # item that ports them
 NOT_PORTED = {
-    "qrnn": "queue 1 item 10, QRNN with kernels K6-K8",
-    "qrnn_pallas": "queue 1 item 10, QRNN with kernels K6-K8",
     "seq_parallel": "queue 1 item 11, multi-GPU",
     "data_parallel": "queue 1 item 11, multi-GPU",
     "model_parallel": "queue 1 item 11, multi-GPU",
@@ -72,8 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--qrnn", action="store_true")
-    p.add_argument("--qrnn_pallas", action="store_true")
+    p.add_argument("--qrnn", action="store_true",
+                   help="QRNN encoder (forget-mult kernels K6 and K7 on "
+                        "CUDA)")
+    p.add_argument("--qrnn_pallas", action="store_true",
+                   help="implies --qrnn, as in the JAX CLI; the port always "
+                        "runs its kernels on CUDA")
     for name in ("seq_parallel", "data_parallel", "model_parallel",
                  "metrics_port", "flight_ring"):
         p.add_argument(f"--{name}", type=int, default=None)
@@ -89,6 +91,8 @@ def main(argv=None) -> dict:
         if value not in (None, False):
             raise SystemExit(f"--{name} is not ported to the PyTorch "
                              f"package yet (ROADMAP.md {item})")
+    if args.qrnn_pallas:
+        args.qrnn = True  # the kernel flag implies the QRNN variant
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     log = logging.getLogger("train")
 
@@ -125,7 +129,8 @@ def main(argv=None) -> dict:
     mcfg = AWDLSTMConfig(
         vocab_size=len(vocab), emb_sz=args.emb_sz, n_hid=args.n_hid,
         n_layers=args.n_layers, pad_id=vocab.pad_id,
-        lstm_use_pallas=args.lstm_pallas,
+        lstm_use_pallas=args.lstm_pallas, qrnn=args.qrnn,
+        qrnn_use_pallas=args.qrnn_pallas,
         dtype="bfloat16" if args.bf16 else "float32",
         **{name: getattr(args, name) for name in BASE_DROPOUTS})
     tcfg = TrainConfig(

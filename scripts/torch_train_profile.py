@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where a training window's time goes, on the card.
 
-    python3 scripts/torch_train_profile.py
+    python3 scripts/torch_train_profile.py [--qrnn]
 
 Run from the root of a checkout on a machine with a CUDA card. Builds
 the port's ``LMTrainer`` at flagship width (vocab 60,000, emb 800, hidden
 2500/2500/2500/800, bf16 compute, f32 masters, the reference's dropouts)
-at B=104, bptt 67, on tokens from a numpy seed; warms two windows, then
-traces two with ``torch.profiler``. Prints one JSON object: the window's
-wall time, the device time by kernel (K4 and K5 by name, the rest by
-PyTorch's kernel names, largest first) and the device's busy share of
-the wall time. Imports nothing of JAX.
+at B=104, bptt 67, on tokens from a numpy seed, with LSTM layers or, with
+``--qrnn``, QRNN layers; warms two windows, then traces two with
+``torch.profiler``. Prints one JSON object: the window's wall time, the
+device time by kernel (the twelve largest by PyTorch's kernel names,
+and K4 and K5, or K6 and K7, by name wherever they rank) and the
+device's busy share of the wall time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ B, T, SEED, WARM, TRACED = 104, 67, 0, 2, 2
 
 
 def kernel_name(key: str) -> str:
-    """K4 and K5 by name; K4 is lstm_step's kGates instantiation (its
-    last template argument true), mangled or demangled."""
+    """K4-K7 by name; K4 is lstm_step's kGates instantiation (its last
+    template argument true), mangled or demangled."""
+    if "forget_mult_bwd" in key:
+        return "K7 forget_mult_bwd"
+    if "forget_mult_fwd" in key:
+        return "K6 forget_mult_fwd"
     if "lstm_bwd_step" in key:
         return "K5 lstm_bwd_step"
     if "lstm_step" in key:
@@ -53,7 +58,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
     cfg = AWDLSTMConfig(vocab_size=60000, emb_sz=800, n_hid=2500,
-                        n_layers=4, dtype="bfloat16")
+                        n_layers=4, dtype="bfloat16",
+                        qrnn="--qrnn" in sys.argv[1:])
     trainer = LMTrainer(cfg, TrainConfig(batch_size=B, bptt=T),
                         device="cuda")
     state = trainer.init_state(SEED)
@@ -80,10 +86,13 @@ def main() -> int:
         d["device_ms"] += e.device_time_total / 1e3 / TRACED
         d["launches"] += e.count // TRACED
     device_ms = sum(d["device_ms"] for d in by_kernel.values())
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["device_ms"])
-               [:12])
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1]["device_ms"])
+    # the twelve largest, and the port's own kernels wherever they rank
+    top = {k: v for i, (k, v) in enumerate(ranked)
+           if i < 12 or k.startswith("K")}
     print(json.dumps({
-        "card": card, "shape": {"B": B, "T": T, "dtype": "bfloat16"},
+        "card": card, "qrnn": cfg.qrnn,
+        "shape": {"B": B, "T": T, "dtype": "bfloat16"},
         "window_ms": wall_ms, "tokens_per_s": B * T / wall_ms * 1e3,
         "device_ms_per_window": device_ms,
         "device_busy_share": device_ms / wall_ms,

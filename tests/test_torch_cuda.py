@@ -254,3 +254,148 @@ def test_layer_grads_on_the_kernels_match_plain_autograd(cuda_device, dtype):
     assert counts == [(T, T + 1), (0, 0)]
     for k in shapes:
         assert _rel(grads[0][k], grads[1][k]) <= LAYER_GRAD_REL[dtype], k
+
+
+# K6-K8 compute each element with the same f32 operations as their plain
+# versions, in the same order and unfused, so they should agree exactly;
+# the bounds allow one f32 ulp of difference, which in bf16 can tip one
+# rounding of the stored output (2^-8 relative).
+FM_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2.0 ** -7)}
+FM_SHAPES = [(7, 5, 40), (1, 1, 8), (19, 3, 129), (64, 32, 2500),
+             (67, 104, 800)]
+
+
+def _fm_args(T, B, H, device, dtype, seed=0):
+    """z in (-1, 1), f in (0, 1), h0 and a cotangent, time-major."""
+    rng = np.random.default_rng(seed)
+    arrs = (np.tanh(rng.normal(0, 1, (T, B, H))),
+            1 / (1 + np.exp(-rng.normal(0, 1.5, (T, B, H)))),
+            rng.normal(0, 0.5, (B, H)), rng.normal(0, 1, (T, B, H)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+            for a in arrs]
+
+
+def _assert_fm_close(got, want, dtype):
+    atol, rtol = FM_TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", FM_SHAPES)
+def test_k6_k7_match_plain(cuda_device, dtype, T, B, H):
+    from code_intelligence_tpu_torch.ops import forget_mult as FM
+
+    z, f, h0, g = _fm_args(T, B, H, cuda_device, dtype)
+    before = (FM.forget_mult_launches.count,
+              FM.forget_mult_backward_launches.count)
+    out = FM.forget_mult_forward(z, f, h0)
+    grads = FM.forget_mult_backward(z, f, out, h0, g)
+    torch.cuda.synchronize()
+    assert (FM.forget_mult_launches.count,
+            FM.forget_mult_backward_launches.count) == (before[0] + 1,
+                                                        before[1] + 1)
+    _assert_fm_close(out, FM.forget_mult_forward_plain(z, f, h0), dtype)
+    for a, b in zip(grads, FM.forget_mult_backward_plain(z, f, out, h0, g)):
+        _assert_fm_close(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (16, 32, 2500),
+                                   (16, 32, 800)])
+def test_k8_matches_plain_and_freezes_the_carry(cuda_device, dtype, T, B, H):
+    from code_intelligence_tpu_torch.ops import forget_mult as FM
+
+    z, f, h0, _ = _fm_args(T, B, H, cuda_device, dtype)
+    for valid in (_valid(T, B, cuda_device),
+                  torch.zeros((B,), dtype=torch.int32, device=cuda_device)):
+        before = FM.forget_mult_ragged_launches.count
+        out = FM.forget_mult_ragged(z, f, h0, valid)
+        torch.cuda.synchronize()
+        assert FM.forget_mult_ragged_launches.count == before + 1
+        _assert_fm_close(out, FM.forget_mult_ragged_plain(z, f, h0, valid),
+                         dtype)
+        for b, v in enumerate(valid.tolist()):
+            frozen = out[v - 1, b] if v else h0[b]
+            assert torch.equal(out[v:, b], frozen.expand(T - v, H))
+
+
+@pytest.mark.cuda
+def test_forget_mult_wrappers_raise_on_strided_views(cuda_device):
+    from code_intelligence_tpu_torch.ops import forget_mult as FM
+
+    z, f, h0, _ = _fm_args(4, 3, 8, cuda_device, torch.float32)
+    gates = torch.cat([z, f], dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        FM.forget_mult_forward(gates[..., :8], gates[..., 8:], h0)
+    with pytest.raises(TypeError, match="h0"):
+        FM.forget_mult_forward(z, f, h0.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_qrnn_layer_grads_on_the_kernels_match_plain_autograd(cuda_device,
+                                                              dtype):
+    from code_intelligence_tpu_torch.ops import forget_mult as FM
+    from code_intelligence_tpu_torch.ops.qrnn import qrnn_layer
+
+    B, T, n_in, H = 19, 9, 24, 130
+    rng = np.random.default_rng(4)
+    s = 1 / np.sqrt(H)
+    shapes = {"x": (B, T, n_in), "h0": (B, H), "x_prev": (B, n_in),
+              "w": (3 * H, 2 * n_in), "b": (3 * H,)}
+    base = {k: torch.from_numpy(rng.uniform(-1, 1, v).astype(np.float32)
+                                * (s if k in "wb" else 1))
+            .to(cuda_device, dtype) for k, v in shapes.items()}
+    cot = [torch.from_numpy(rng.normal(0, 1, v).astype(np.float32))
+           .to(cuda_device, dtype) for v in ((B, T, H), (B, H))]
+    grads, counts = [], []
+    for plain in (False, True):
+        t = {k: v.clone().requires_grad_() for k, v in base.items()}
+        before = (FM.forget_mult_launches.count,
+                  FM.forget_mult_backward_launches.count)
+        out, h_t = qrnn_layer(t["x"], {"w": t["w"], "b": t["b"]},
+                              h0=t["h0"], window=2, x_prev=t["x_prev"],
+                              plain=plain)
+        torch.autograd.backward((out, h_t), cot)
+        torch.cuda.synchronize()
+        counts.append((FM.forget_mult_launches.count - before[0],
+                       FM.forget_mult_backward_launches.count - before[1]))
+        grads.append({k: v.grad for k, v in t.items()})
+    assert counts == [(1, 1), (0, 0)]
+    for k in shapes:
+        assert _rel(grads[0][k], grads[1][k]) <= LAYER_GRAD_REL[dtype], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler,precision",
+                         [("slots", "f32"), ("ragged", "f32"),
+                          ("ragged", "int8"), ("groups", "int8")])
+def test_qrnn_engines_match_plain_engine(cuda_device, tmp_path, scheduler,
+                                         precision):
+    from code_intelligence_tpu_torch.inference.engine import InferenceEngine
+    from code_intelligence_tpu_torch.models import (
+        AWDLSTMConfig, random_encoder_arrays)
+    from code_intelligence_tpu_torch.text import SPECIALS, Vocab
+    from code_intelligence_tpu_torch.training.checkpoint import export_encoder
+
+    cfg = AWDLSTMConfig(vocab_size=200, emb_sz=16, n_hid=40, n_layers=3,
+                        qrnn=True)
+    export_encoder(tmp_path, random_encoder_arrays(cfg, seed=1), cfg,
+                   Vocab(SPECIALS + [f"w{i}" for i in range(190)]))
+    rng = np.random.RandomState(0)
+    seqs = [rng.randint(5, 199, n).astype(np.int32)
+            for n in (1, 8, 9, 16, 17, 40, 3, 70, 0, 5, 12, 33)]
+    kw = {"buckets": (8, 16), "batch_size": 4, "precision": precision,
+          "device": "cuda"}
+    got = InferenceEngine.from_export(tmp_path, **kw).embed_ids_batch(
+        seqs, scheduler=scheduler)
+    want = InferenceEngine.from_export(tmp_path, plain=True, **kw) \
+        .embed_ids_batch(seqs, scheduler=scheduler)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

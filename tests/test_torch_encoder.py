@@ -91,8 +91,9 @@ def test_config_reads_every_jax_key(tmp_path):
     cfg = AWDLSTMConfig(**raw)
     assert set(raw) == {f.name for f in dataclasses.fields(cfg)}
     assert [cfg.layer_size(i) for i in range(2)] == [12, 8]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AWDLSTMConfig(**{**raw, "qrnn": True})
+    # QRNN is ported: the flag loads, with its window-2 first layer
+    qcfg = AWDLSTMConfig(**{**raw, "qrnn": True})
+    assert qcfg.qrnn and [qcfg.qrnn_window(i) for i in range(2)] == [2, 1]
     # int8 is the engine's serve precision now; an unknown one raises
     assert AWDLSTMConfig(**{**raw, "precision": "int8"}).precision == "int8"
     with pytest.raises(ValueError, match="precision"):

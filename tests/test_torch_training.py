@@ -318,7 +318,8 @@ def test_cli_trains_on_cpu_and_the_engine_serves_the_export(tmp_path):
     assert ckpt.latest_step(model_dir / "ckpt") >= step
     assert np.isfinite(summary2["loss"])
 
-    with pytest.raises(SystemExit, match="not ported"):
-        main(args + ["--qrnn"])
+    # QRNN is ported: the flag trains
+    qrnn = main(args + ["--qrnn", "--model_dir", str(tmp_path / "qrnn")])
+    assert np.isfinite(qrnn["loss"]) and np.isfinite(qrnn["val_loss"])
     with pytest.raises(SystemExit, match="not ported"):
         main(args + ["--data_parallel", "2"])
