@@ -18,8 +18,10 @@ on failure (exit code 1, and no result line):
    (the slot step), H=2500 and H=800; K2 (ragged) and K3 (ragged, int8
    W_hh) at B=32, T=16 (the ragged step), with valid lengths of 0, 1,
    mid-step and full, and a case whose second batch tile is all dead;
-   K4 (forward with the training residuals) and K5 (its adjoint) at
-   T=7/B=5/H=40 and at the training shapes T=67, B=104, H=2500 and H=800,
+   K4 (forward with the training residuals) and K5 (its adjoint; both on
+   the tensor cores in bf16) at T=7/B=5/H=40, at T=5/B=13/H=37 (B and H
+   not multiples of 8) and at the training shapes T=67, B=104, H=2500 and
+   H=800,
    and one layer's gradients through K4/K5 against autograd through the
    plain loop (T=67, B=104, H=800). The QRNN forget-mult kernels: K6
    (forward) and K7 (its adjoint) at T=7/B=5/H=40, the slot step (T=64,
@@ -673,7 +675,7 @@ def training_kernel_checks() -> dict:
     """Phase 5: K4 and K5 against their plain versions, at a small odd
     shape and at the training shapes, and the layer's gradients."""
     errs = {"K4": {}, "K5": {}, "layer_grad_rel": {}}
-    for T, B, H in ((7, 5, 40), (TRAIN_BPTT, TRAIN_BS, 2500),
+    for T, B, H in ((7, 5, 40), (5, 13, 37), (TRAIN_BPTT, TRAIN_BS, 2500),
                     (TRAIN_BPTT, TRAIN_BS, 800)):
         for dtype in (torch.float32, torch.bfloat16):
             key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"

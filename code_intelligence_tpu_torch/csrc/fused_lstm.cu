@@ -20,7 +20,8 @@
 // _kernel_with_gates): K1, plus each step also stores the post-activation
 // gates i, f, g, o (B, 4H) and the carry c it read (B, H), both rounded to
 // the input dtype as the TPU kernel stores them, since K5 recomputes from
-// those rounded values. It is the kGates instantiation of K1's template.
+// those rounded values. In f32 it is the kGates instantiation of K1's
+// template; in bf16 it runs on the tensor cores (lstm_fwd_tc_step, below).
 //
 // K2 replaces fused_lstm_forward_ragged (body _ragged_kernel): K1 plus
 // valid_lens (B,) int32 on the device. Row b is live at step t while
@@ -73,9 +74,10 @@
 //    vector load is 4 codes (one char4).
 //  * Batch tiles are the fastest-varying block index, so the blocks that
 //    read the same W_hh rows run together and the second read hits L2.
-//  Tensor cores (wgmma), TMA and a persistent design that keeps h on chip
-//  across steps are later work.
+//  K1-K3 and the f32 K4 and K5 do their product on the CUDA cores; the
+//  bf16 K4 and K5 do it on the tensor cores (end of the file).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -462,7 +464,8 @@ int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
 // and dh0, dc0 are the final carry in T. What bounds it is what bounds K1:
 // every step's product needs all of W_hh (4H*H elements) against dz[t].
 //
-// Design, simple first. The product of step t needs all of dz[t], which
+// Design of the f32 path (bf16 runs lstm_bwd_tc_step, below), simple
+// first. The product of step t needs all of dz[t], which
 // every block writes a part of, so a step ends with its launch: one launch
 // per step. A block owns kBwdCols consecutive columns j of the row-major
 // W_hh and kBwdRows batch rows. In one launch it computes
@@ -598,9 +601,471 @@ int run_bwd(const void* gates, const void* c_seq, const void* d_out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4 and K5 in bf16 on the tensor cores.
+//
+// What bounded the CUDA-core versions above at the training shape (T=67,
+// B=104, H=2500): each step's product, 2*B*4H*H = 5.2 GFLOP, ran as f32
+// FMAs (>= 78 us a step at 67 TFLOP/s), and K5's 7 batch tiles each
+// streamed all of W_hh, so it was read 7 times a step. Here a block owns a
+// tile of W_hh's rows (K4) or columns (K5) for every batch row at once,
+// with the batch as the MMA's N dimension, so W_hh is read once a step,
+// and the product runs as mma.sync.m16n8k16 (bf16 in, f32 accumulate: the
+// operands and sums of the TPU kernel's jnp.dot with
+// preferred_element_type=f32; only the order of the sum differs). The
+// floor of a step is then streaming W_hh (50 MB at H=2500, ~15 us at
+// 3.35 TB/s); the product itself needs ~5 us of the tensor cores.
+//
+// mma.sync and cp.async, not wgmma and TMA: a step is short, the tile is
+// what wgmma would take too, and mma.sync's register fragments need no
+// descriptors. Measured on an H100 80GB HBM3 (700 W), a step at B=8, with
+// almost no MMA work, still took ~2/3 of a step at B=104: what remains is
+// latency (launch, the pipeline's fill, the epilogue), not the MMA issue.
+//
+// Layout. A bf16 row of H=2500 is 5000 bytes, which is not 16-byte aligned,
+// and 2500 is not a multiple of the MMA's K of 16. So the wrapper packs
+// W_hh once per call into a copy whose rows have a leading dimension Hp (a
+// multiple of kTcK, zero-filled past H), ordered for the kernel
+// (ops/fused_lstm.py: tc_layout, pack_w_hh_fwd, pack_w_hh_bwd), and the
+// kernels keep their own recurrent operand (K4: h, K5: dz) in zero-padded
+// (B, Hp) / (B, 4*Hp) scratches, two of each, written by the epilogue of
+// one step and read by the next. Every cp.async is then 16 bytes on a
+// 16-byte boundary, and batch rows past B are zero-filled in shared memory.
+//
+// The block: one per SM (the grids below fit the H100's 132 SMs at
+// H=2500), so its ring can be deep: 6 stages of 64-wide K slices of both
+// operands, ~50 KB of W_hh in flight per SM, as streaming at the HBM rate
+// needs. A warp per 16-row slice of the tile and half of each stage's k16
+// steps (kTcKSplit), over every batch row (14 n8 tiles, up to 112 rows; the
+// grid's z covers more). Fragments come from shared memory by ldmatrix
+// (rows padded to 72 elements, so the 8 row addresses of an 8x8 matrix hit
+// distinct banks), the next k16 step's while the current one's MMAs run.
+// The f32 sums go to shared memory as [batch][row]; the element-wise step
+// then runs from there, fused as before, each thread issuing all its
+// global loads before any arithmetic (one element at a time, their
+// latencies added up).
+//
+// K4 (lstm_fwd_tc_step): gates^T = W_hh . h_{t-1}^T. A block owns 20
+// hidden units, i.e. the 80 W_hh rows j, H+j, 2H+j, 3H+j of each, packed
+// contiguously, so the tile holds all four gates of its units and the
+// cell update needs no second pass. K is H: ceil(H/20) blocks (125 at
+// H=2500, 40 at H=800). It stores out[t], h into the next scratch, c, and
+// the residuals, rounded where the CUDA-core K4 rounds them.
+//
+// K5 (lstm_bwd_tc_step): dh^T = W_hh^T . dz[t+1]^T. A block owns 96 hidden
+// units j; the 4H sum is split over a cluster of 4 blocks, one per gate
+// slab of W_hh, and each block adds the four partials of a quarter of the
+// batch rows through distributed shared memory before its element-wise
+// step: 4 * ceil(H/96) blocks (108 at H=2500, 36 at H=800). With 80 units
+// (128 blocks) a call took 1.8x as long: a cluster's blocks must share a
+// GPC, and not all 32 clusters of one-block SMs were resident at once.
+// scripts/torch_lstm_tc_sweep.py rebuilds this file with other tiles.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+namespace cg = cooperative_groups;
+
+constexpr int kTcBatch = 112;    // batch rows per block: 14 n8 tiles
+constexpr int kTcK = 64;         // K per pipeline stage
+constexpr int kTcStages = 6;
+constexpr int kTcKSplit = 2;     // warps splitting a stage's k16 steps
+constexpr int kTcLd = kTcK + 8;  // shared row stride, bf16 elements
+constexpr int kTcCluster = 4;    // K5: one block per gate slab
+static_assert(kTcBatch % 16 == 0, "batch rows go in pairs of n8 tiles");
+static_assert((kTcK / 16) % kTcKSplit == 0, "k16 steps split evenly");
+
+// A block's tile: kRows rows (K4: W_hh rows, K5: its columns) times up to
+// kTcBatch batch rows; a warp per 16-row slice and share of the k16 steps.
+template <int kRows>
+struct Tile {
+  static_assert(kRows % 16 == 0, "16-row warp slices");
+  static constexpr int kThreads = kRows / 16 * kTcKSplit * 32;
+  static constexpr int kRedLd = kRows + 4;  // f32 stride of sums [batch][row]
+  static constexpr int kSumElems = kTcBatch * kRedLd;  // one K split's sums
+  static constexpr int kStageElems = (kRows + kTcBatch) * kTcLd;
+  static constexpr int kSmem = kTcStages * kStageElems * (int)sizeof(bf16);
+  static_assert(kTcKSplit * kSumElems * 4 <= kSmem, "the sums reuse the ring");
+};
+constexpr int kTcFwdRows = 80;              // K4: 20 hidden units x 4 gates
+constexpr int kTcFwdUnits = kTcFwdRows / 4;
+constexpr int kTcBwdRows = 96;              // K5: hidden units
+using FwdTile = Tile<kTcFwdRows>;
+using BwdTile = Tile<kTcBwdRows>;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !live (src is then not read)
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// sums[n][m] = sum over k < n_k * kTcK of a[m][k] * b[n][k], for the tile's
+// kRows rows m of a (row stride lda) and the nb rows n of b (row stride
+// ldb), written to `sums` (stride kRedLd, aliasing `ring`) as kTcKSplit
+// partial sums kSumElems apart (tc_sum adds them). Called by every thread
+// of the block; ends with the sums visible to the block.
+template <int kRows>
+__device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
+                                           size_t lda,
+                                           const bf16* __restrict__ b,
+                                           size_t ldb, int nb, int n_k,
+                                           bf16* ring, float* sums) {
+  using Tl = Tile<kRows>;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) % (kRows / 16);  // the warp's 16-row slice
+  const int split = (tid >> 5) / (kRows / 16);  // its share of each stage
+  constexpr int kSteps = kTcK / 16 / kTcKSplit;   // k16 steps per stage
+  const int n_pairs = (nb + 15) / 16;  // pairs of n8 tiles that hold rows
+  auto load = [&](int slot, int kt) {
+    bf16* sa = ring + slot * Tl::kStageElems;
+    bf16* sb = sa + kRows * kTcLd;
+    const int k0 = kt * kTcK;
+    constexpr int kChunks = kTcK / 8;  // 16-byte chunks per row
+    for (int i = tid; i < kRows * kChunks; i += Tl::kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      cp_async16(smem_addr(sa + r * kTcLd + c), a + r * lda + k0 + c, true);
+    }
+    for (int i = tid; i < n_pairs * 16 * kChunks; i += Tl::kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool live = r < nb;
+      cp_async16(smem_addr(sb + r * kTcLd + c),
+                 b + (live ? r : 0) * ldb + k0 + c, live);
+    }
+  };
+  float acc[kTcBatch / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kTcBatch / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < n_k) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<kTcStages - 2>();  // slice kt has landed
+    __syncthreads();                 // and every warp is done with kt - 1
+    const int next = kt + kTcStages - 1;
+    if (next < n_k) load(next % kTcStages, next);
+    cp_async_commit();
+    const bf16* sa = ring + (kt % kTcStages) * Tl::kStageElems;
+    const bf16* sb = sa + kRows * kTcLd;
+    // Fragments of k16 step kk: a (rows warp*16 .. +15) and, for each pair
+    // p of n8 tiles, b0 and b1 of tiles 2p and 2p + 1. The asm statements
+    // keep their order, so step kk + 1's loads are written before step
+    // kk's MMAs: they are in flight while the tensor cores work.
+    unsigned af[2][4], bfr[2][kTcBatch / 16][4];
+    auto load_frags = [&](int kk, unsigned (&a)[4],
+                          unsigned (&b)[kTcBatch / 16][4]) {
+      ldmatrix_x4(smem_addr(sa + (warp * 16 + (lane & 15)) * kTcLd +
+                            kk * 16 + (lane >> 4) * 8),
+                  a);
+#pragma unroll
+      for (int p = 0; p < kTcBatch / 16; ++p)
+        if (p < n_pairs)  // the same for the whole warp
+          ldmatrix_x4(smem_addr(sb +
+                                (p * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                    kTcLd +
+                                kk * 16 + ((lane >> 3) & 1) * 8),
+                      b[p]);
+    };
+    const int k_first = split * kSteps;
+    load_frags(k_first, af[0], bfr[0]);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk + 1 < kSteps)
+        load_frags(k_first + kk + 1, af[(kk + 1) % 2], bfr[(kk + 1) % 2]);
+#pragma unroll
+      for (int p = 0; p < kTcBatch / 16; ++p) {
+        if (p < n_pairs) {
+          mma_bf16(acc[2 * p], af[kk % 2], bfr[kk % 2][p][0],
+                   bfr[kk % 2][p][1]);
+          mma_bf16(acc[2 * p + 1], af[kk % 2], bfr[kk % 2][p][2],
+                   bfr[kk % 2][p][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the sums overwrite it
+  // accumulator (m, n): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+  const int m = warp * 16 + (lane >> 2), n = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < kTcBatch / 8; ++nt) {
+    if (nt < 2 * n_pairs) {
+      float* s = sums + split * Tl::kSumElems + (nt * 8 + n) * Tl::kRedLd + m;
+      s[0] = acc[nt][0];
+      s[Tl::kRedLd] = acc[nt][1];
+      s[8] = acc[nt][2];
+      s[Tl::kRedLd + 8] = acc[nt][3];
+    }
+  }
+  __syncthreads();
+}
+
+// The product's sum at index i of `sums`: its K splits added.
+template <int kRows>
+__device__ __forceinline__ float tc_sum(const float* sums, int i) {
+  float v = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTcKSplit; ++s) v += sums[s * Tile<kRows>::kSumElems + i];
+  return v;
+}
+
+// K4's step t on the tensor cores. w_pack is (tiles * kTcFwdRows, Hp): tile
+// u's rows are W_hh rows g*H + kTcFwdUnits*u + jj in order (g, jj), zero
+// past H.
+__global__ void __launch_bounds__(FwdTile::kThreads, 1)
+lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
+                 const bf16* __restrict__ w_pack,  // (., Hp)
+                 const bf16* __restrict__ h_in,    // (B, Hp) h_{t-1}
+                 const bf16* __restrict__ c_prev,  // (B, H)
+                 bf16* __restrict__ h_next,        // (B, Hp) h_t
+                 bf16* __restrict__ c_out,         // (B, H)
+                 bf16* __restrict__ out,           // (B, H) out[t]
+                 bf16* __restrict__ h_last,        // (B, H) or null
+                 bf16* __restrict__ gates_out,     // (B, 4H)
+                 bf16* __restrict__ c_seq_out,     // (B, H)
+                 int B, int H, int Hp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sums = reinterpret_cast<float*>(smem);
+  const int u0 = blockIdx.x * kTcFwdUnits, b0 = blockIdx.y * kTcBatch;
+  const int nb = min(kTcBatch, B - b0);
+  tc_product<kTcFwdRows>(w_pack + (size_t)blockIdx.x * kTcFwdRows * Hp, Hp,
+             h_in + (size_t)b0 * Hp, Hp, nb, Hp / kTcK,
+             reinterpret_cast<bf16*>(smem), sums);
+  // The cell update of the block's (b, j) pairs, kEpi a thread: every
+  // global load first, so their latencies overlap, then the arithmetic.
+  constexpr int kEpi =
+      (kTcBatch * kTcFwdUnits + FwdTile::kThreads - 1) / FwdTile::kThreads;
+  float pre[kEpi][4], cp[kEpi];
+#pragma unroll
+  for (int e = 0; e < kEpi; ++e) {
+    const int p = threadIdx.x + e * FwdTile::kThreads;
+    const int bb = p / kTcFwdUnits, jj = p % kTcFwdUnits, j = u0 + jj;
+    if (bb >= nb || j >= H) continue;
+    const bf16* xp = x_proj + (size_t)(b0 + bb) * 4 * H + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      pre[e][g] = to_f32(xp[g * H]) +
+                  tc_sum<kTcFwdRows>(
+                      sums, bb * FwdTile::kRedLd + g * kTcFwdUnits + jj);
+    cp[e] = to_f32(c_prev[(size_t)(b0 + bb) * H + j]);
+  }
+#pragma unroll
+  for (int e = 0; e < kEpi; ++e) {
+    const int p = threadIdx.x + e * FwdTile::kThreads;
+    const int bb = p / kTcFwdUnits, jj = p % kTcFwdUnits, j = u0 + jj;
+    if (bb >= nb || j >= H) continue;
+    const int b = b0 + bb;
+    const float ig = sigmoid(pre[e][0]), fg = sigmoid(pre[e][1]);
+    const float gg = tanhf(pre[e][2]), og = sigmoid(pre[e][3]);
+    const size_t at = (size_t)b * H + j;
+    const float c = fg * cp[e] + ig * gg;
+    const bf16 h = from_f32<bf16>(og * tanhf(c));
+    bf16* gt = gates_out + (size_t)b * 4 * H + j;  // rounded as K5 reads
+    gt[0] = from_f32<bf16>(ig);
+    gt[H] = from_f32<bf16>(fg);
+    gt[2 * H] = from_f32<bf16>(gg);
+    gt[3 * H] = from_f32<bf16>(og);
+    c_seq_out[at] = from_f32<bf16>(cp[e]);  // c_prev as stored: exact
+    out[at] = h;
+    h_next[(size_t)b * Hp + j] = h;
+    c_out[at] = from_f32<bf16>(c);
+    if (h_last != nullptr) h_last[at] = h;
+  }
+}
+
+// K5's launch on the tensor cores: the product of dz[t+1] (none when dz_in
+// is null: dh = dh_init), then step t's element-wise adjoint (none when
+// gates is null: the carry goes to dh0, dc0). w_pack is (bwd tiles *
+// kTcBwdRows, 4 * Hp): row j, column g*Hp + k holds W_hh[g*H + k][j], zero
+// past H.
+__global__ void __cluster_dims__(kTcCluster, 1, 1)
+    __launch_bounds__(BwdTile::kThreads, 1)
+lstm_bwd_tc_step(const bf16* __restrict__ dz_in,    // (B, 4Hp) dz[t+1]
+                 const bf16* __restrict__ w_pack,   // (., 4Hp)
+                 const bf16* __restrict__ dh_init,  // (B, H)
+                 const bf16* __restrict__ gates,    // (B, 4H) gates[t]
+                 const bf16* __restrict__ c_prev,   // (B, H) c_prev[t]
+                 const bf16* __restrict__ d_out,    // (B, H) d_out[t]
+                 float* __restrict__ dc,            // (B, H) f32, in place
+                 bf16* __restrict__ dz_out,         // (B, 4H) dz[t]
+                 bf16* __restrict__ dz_next,        // (B, 4Hp) dz[t]
+                 bf16* __restrict__ dh0,            // (B, H)
+                 bf16* __restrict__ dc0,            // (B, H)
+                 int B, int H, int Hp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sums = reinterpret_cast<float*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slab = blockIdx.x;  // gate slab of the 4H sum = cluster rank
+  const int j0 = blockIdx.y * kTcBwdRows, b0 = blockIdx.z * kTcBatch;
+  const int nb = min(kTcBatch, B - b0);
+  const int G = 4 * H;
+  const size_t ldp = 4 * (size_t)Hp;
+  const bool product = dz_in != nullptr;  // the same for the whole grid
+  if (product) {
+    tc_product<kTcBwdRows>(w_pack + (size_t)j0 * ldp + (size_t)slab * Hp, ldp,
+               dz_in + (size_t)b0 * ldp + (size_t)slab * Hp, ldp, nb,
+               Hp / kTcK, reinterpret_cast<bf16*>(smem), sums);
+    cluster.sync();  // every slab's partial sums are in place
+  }
+  // This block finishes a quarter of the batch rows for all its units,
+  // kEpi (b, j) pairs a thread: every load first (the four slabs' sums
+  // from the cluster's shared memory, and the residuals), then the
+  // arithmetic.
+  const int q = (nb + kTcCluster - 1) / kTcCluster;
+  const int bq0 = slab * q, nq = max(0, min(q, nb - bq0));
+  constexpr int kEpi = (kTcBatch / kTcCluster * kTcBwdRows +
+                        BwdTile::kThreads - 1) / BwdTile::kThreads;
+  static_assert(kTcBatch % kTcCluster == 0, "q <= kTcBatch / kTcCluster");
+  float dh[kEpi], gv[kEpi][4], cp[kEpi], dov[kEpi], dcv[kEpi];
+#pragma unroll
+  for (int e = 0; e < kEpi; ++e) {
+    const int p = threadIdx.x + e * BwdTile::kThreads;
+    const int bb = bq0 + p / kTcBwdRows, j = j0 + p % kTcBwdRows;
+    if (p >= nq * kTcBwdRows || j >= H) continue;
+    const size_t at = (size_t)(b0 + bb) * H + j;
+    if (product) {
+      dh[e] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kTcCluster; ++r)
+        dh[e] += tc_sum<kTcBwdRows>(cluster.map_shared_rank(sums, r),
+                        bb * BwdTile::kRedLd + p % kTcBwdRows);
+    } else {
+      dh[e] = to_f32(dh_init[at]);
+    }
+    dcv[e] = dc[at];
+    if (gates == nullptr) continue;
+    const bf16* g = gates + (size_t)(b0 + bb) * G + j;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) gv[e][k] = to_f32(g[k * H]);
+    cp[e] = to_f32(c_prev[at]);
+    dov[e] = to_f32(d_out[at]);
+  }
+#pragma unroll
+  for (int e = 0; e < kEpi; ++e) {
+    const int p = threadIdx.x + e * BwdTile::kThreads;
+    const int b = b0 + bq0 + p / kTcBwdRows, j = j0 + p % kTcBwdRows;
+    if (p >= nq * kTcBwdRows || j >= H) continue;
+    const size_t at = (size_t)b * H + j;
+    if (gates == nullptr) {  // past step 0: the carry is dh0, dc0
+      dh0[at] = from_f32<bf16>(dh[e]);
+      dc0[at] = from_f32<bf16>(dcv[e]);
+      continue;
+    }
+    const float i_t = gv[e][0], f_t = gv[e][1], g_t = gv[e][2], o_t = gv[e][3];
+    const float tanh_c = tanhf(f_t * cp[e] + i_t * g_t);
+    const float dhv = dh[e] + dov[e];
+    const float d_o = dhv * tanh_c;
+    const float dcn = dcv[e] + dhv * o_t * (1.0f - tanh_c * tanh_c);
+    const bf16 z[4] = {from_f32<bf16>((dcn * g_t) * i_t * (1.0f - i_t)),
+                       from_f32<bf16>((dcn * cp[e]) * f_t * (1.0f - f_t)),
+                       from_f32<bf16>((dcn * i_t) * (1.0f - g_t * g_t)),
+                       from_f32<bf16>(d_o * o_t * (1.0f - o_t))};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      dz_out[(size_t)b * G + k * H + j] = z[k];
+      dz_next[(size_t)b * ldp + k * Hp + j] = z[k];
+    }
+    dc[at] = dcn * f_t;
+  }
+  if (product) cluster.sync();  // no block leaves while its sums are read
+}
+
+// K4 in bf16: T launches. h_pad is (2, B, Hp), zero past H, with h0 in
+// h_pad[0]; step t reads h_pad[t % 2] and writes h_pad[(t + 1) % 2]. c
+// ping-pongs between c_T and c_scratch as in run().
+int run_fwd_tc(const bf16* xp, const bf16* w_pack, bf16* h_pad,
+               const bf16* c0, bf16* out, bf16* gates, bf16* c_seq,
+               bf16* h_t, bf16* c_t, bf16* c_scratch, int T_len, int B,
+               int H, int Hp, dim3 grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_fwd_tc_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FwdTile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t BH = (size_t)B * H, BHp = (size_t)B * Hp;
+  auto c_after = [&](int t) {
+    return ((T_len - 1 - t) % 2 == 0) ? c_t : c_scratch;
+  };
+  for (int t = 0; t < T_len; ++t) {
+    lstm_fwd_tc_step<<<grid, FwdTile::kThreads, FwdTile::kSmem, stream>>>(
+        xp + (size_t)t * 4 * BH, w_pack, h_pad + (t % 2) * BHp,
+        t == 0 ? c0 : c_after(t - 1), h_pad + ((t + 1) % 2) * BHp,
+        c_after(t), out + (size_t)t * BH, t == T_len - 1 ? h_t : nullptr,
+        gates + (size_t)t * 4 * BH, c_seq + (size_t)t * BH, B, H, Hp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K5 in bf16: T + 1 launches, as run_bwd. dz_pad is (2, B, 4Hp), zero past
+// H in each slab; dz[t] goes to dz_pad[t % 2] beside dz.
+int run_bwd_tc(const bf16* gates, const bf16* c_seq, const bf16* d_out,
+               const bf16* w_pack, const bf16* dh_t, float* dc, bf16* dz,
+               bf16* dz_pad, bf16* dh0, bf16* dc0, int T_len, int B, int H,
+               int Hp, dim3 grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_tc_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdTile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t BH = (size_t)B * H, BG = 4 * BH, BGp = 4 * (size_t)B * Hp;
+  for (int s = T_len; s >= 0; --s) {
+    const int t = s - 1;
+    const bool last = s == 0;
+    lstm_bwd_tc_step<<<grid, BwdTile::kThreads, BwdTile::kSmem, stream>>>(
+        s == T_len ? nullptr : dz_pad + (s % 2) * BGp, w_pack, dh_t,
+        last ? nullptr : gates + t * BG, last ? nullptr : c_seq + t * BH,
+        last ? nullptr : d_out + t * BH, dc, last ? nullptr : dz + t * BG,
+        last ? nullptr : dz_pad + (t % 2) * BGp, dh0, dc0, B, H, Hp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The bf16 tile constants that ops/fused_lstm.py lays W_hh out for and
+// builds the grids from (TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K,
+// TC_CLUSTER); it checks them against these when it loads the library.
+void fused_lstm_tc_config(int* out) {
+  const int c[5] = {kTcFwdRows, kTcBwdRows, kTcBatch, kTcK, kTcCluster};
+  for (int i = 0; i < 5; ++i) out[i] = c[i];
+}
 
 // dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers of that
 // dtype; c_scratch is (B, H). Returns a cudaError_t (0 on success). T = 0 is
@@ -621,37 +1086,55 @@ int fused_lstm_forward(int dtype, const void* x_proj, const void* w_hh,
 }
 
 // K4: K1 plus the training residuals gates (T, B, 4H) and c_seq (T, B, H),
-// in the same dtype.
+// in the same dtype. bf16 runs on the tensor cores and also takes w_pack,
+// h_pad (2, B, Hp) with h0 in its first half, Hp and the grid, all from
+// ops/fused_lstm.py::tc_layout; f32 reads w_hh and h0 and ignores them.
 int fused_lstm_forward_gates(int dtype, const void* x_proj, const void* w_hh,
-                             const void* h0, const void* c0, void* out,
-                             void* gates, void* c_seq, void* h_t, void* c_t,
-                             void* c_scratch, int T, int B, int H,
-                             void* stream) {
+                             const void* w_pack, const void* h0, void* h_pad,
+                             const void* c0, void* out, void* gates,
+                             void* c_seq, void* h_t, void* c_t,
+                             void* c_scratch, int T, int B, int H, int Hp,
+                             int gx, int gy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float, true>(x_proj, w_hh, h0, c0, out, gates, c_seq, h_t,
                             c_t, c_scratch, T, B, H, s);
   if (dtype == 1)
-    return run<__nv_bfloat16, true>(x_proj, w_hh, h0, c0, out, gates, c_seq,
-                                    h_t, c_t, c_scratch, T, B, H, s);
+    return run_fwd_tc(static_cast<const bf16*>(x_proj),
+                      static_cast<const bf16*>(w_pack),
+                      static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
+                      static_cast<bf16*>(out), static_cast<bf16*>(gates),
+                      static_cast<bf16*>(c_seq), static_cast<bf16*>(h_t),
+                      static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch),
+                      T, B, H, Hp, dim3(gx, gy), s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K5. gates (T, B, 4H), c_seq, d_out (T, B, H), w_hh (4H, H), dh_t (B, H)
 // and the outputs dz (T, B, 4H), dh0, dc0 (B, H) are of dtype; dc is a
 // (B, H) f32 buffer that holds dc_T on entry (rounded to dtype) and is
-// overwritten. T + 1 launches; T = 0 is the caller's to handle.
+// overwritten. bf16 runs on the tensor cores and also takes w_pack, the
+// zeroed scratch dz_pad (2, B, 4Hp), Hp and the grid from tc_layout; f32
+// reads w_hh and ignores them. T + 1 launches; T = 0 is the caller's.
 int fused_lstm_backward(int dtype, const void* gates, const void* c_seq,
-                        const void* d_out, const void* w_hh, const void* dh_t,
-                        float* dc, void* dz, void* dh0, void* dc0, int T,
-                        int B, int H, void* stream) {
+                        const void* d_out, const void* w_hh,
+                        const void* w_pack, const void* dh_t, float* dc,
+                        void* dz, void* dz_pad, void* dh0, void* dc0, int T,
+                        int B, int H, int Hp, int gx, int gy, int gz,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_bwd<float>(gates, c_seq, d_out, w_hh, dh_t, dc, dz, dh0, dc0,
                           T, B, H, s);
   if (dtype == 1)
-    return run_bwd<__nv_bfloat16>(gates, c_seq, d_out, w_hh, dh_t, dc, dz,
-                                  dh0, dc0, T, B, H, s);
+    return run_bwd_tc(static_cast<const bf16*>(gates),
+                      static_cast<const bf16*>(c_seq),
+                      static_cast<const bf16*>(d_out),
+                      static_cast<const bf16*>(w_pack),
+                      static_cast<const bf16*>(dh_t), dc,
+                      static_cast<bf16*>(dz), static_cast<bf16*>(dz_pad),
+                      static_cast<bf16*>(dh0), static_cast<bf16*>(dc0), T, B,
+                      H, Hp, dim3(gx, gy, gz), s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,8 +23,10 @@ The kernels are hand-written CUDA in ``csrc/fused_lstm.cu``; its header
 says what bounds them on an H100 and how they are laid out. The TPU's
 residency gates and tile choice (``fits_resident``,
 ``fits_resident_int8``, ``_pick_tiles*``, sublane padding) are VMEM
-budgets and have no counterpart here: every shape runs its kernel, and
-nothing is padded.
+budgets and have no counterpart here: every shape runs its kernel. The
+bf16 K4 and K5 run on the tensor cores and take ``W_hh`` packed once per
+call into a padded copy laid out for them (:func:`tc_layout`,
+:func:`pack_w_hh_fwd`, :func:`pack_w_hh_bwd`).
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches its kernel or raises. The
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -81,9 +83,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_lstm_forward.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.fused_lstm_forward.restype = i
-    lib.fused_lstm_forward_gates.argtypes = [i, *[p] * 10, i, i, i, p]
+    lib.fused_lstm_forward_gates.argtypes = [i, *[p] * 12, *[i] * 6, p]
     lib.fused_lstm_forward_gates.restype = i
-    lib.fused_lstm_backward.argtypes = [i, *[p] * 9, i, i, i, p]
+    lib.fused_lstm_backward.argtypes = [i, *[p] * 11, *[i] * 7, p]
     lib.fused_lstm_backward.restype = i
     lib.fused_lstm_forward_ragged.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, p]
@@ -93,6 +95,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_lstm_forward_ragged_int8.restype = i
     lib.fused_lstm_error_string.argtypes = [i]
     lib.fused_lstm_error_string.restype = ctypes.c_char_p
+    built = (i * 5)()
+    lib.fused_lstm_tc_config(built)
+    ours = (TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K, TC_CLUSTER)
+    if tuple(built) != ours:
+        raise RuntimeError(f"csrc/fused_lstm.cu's tile constants "
+                           f"{tuple(built)} differ from the layout's {ours}")
 
 
 def _check(x_proj, w_hh, h0, c0, w_dtype=None) -> Tuple[int, int, int]:
@@ -162,6 +170,55 @@ def _check_launchable(name: str, tensors) -> None:
         raise ValueError(f"{name} takes tensors aligned to 16 bytes")
 
 
+# The bf16 K4 and K5 blocks (csrc/fused_lstm.cu, kTc*; checked against the
+# library's when it is loaded):
+# TC_FWD_ROWS W_hh rows (K4: TC_FWD_ROWS / 4 hidden units x 4 gates) or
+# TC_BWD_ROWS of its columns (K5) times up to TC_BATCH batch rows, K in
+# slices of TC_K, and K5's 4H sum split over a cluster of 4 blocks.
+TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K, TC_CLUSTER = 80, 96, 112, 64, 4
+
+
+class TensorCoreLayout(NamedTuple):
+    """Where the bf16 K4 and K5 put ``W_hh`` and their grids, for a batch
+    of ``B`` rows and hidden size ``H``."""
+    hp: int                         # padded row length, a multiple of TC_K
+    fwd_grid: Tuple[int, int]       # K4: (unit tiles, batch tiles)
+    bwd_grid: Tuple[int, int, int]  # K5: (gate slabs = cluster, unit tiles,
+    #                                      batch tiles)
+
+
+def tc_layout(B: int, H: int) -> TensorCoreLayout:
+    batch_tiles = -(-B // TC_BATCH)
+    return TensorCoreLayout(
+        hp=-(-H // TC_K) * TC_K,
+        fwd_grid=(-(-H * 4 // TC_FWD_ROWS), batch_tiles),
+        bwd_grid=(TC_CLUSTER, -(-H // TC_BWD_ROWS), batch_tiles))
+
+
+def pack_w_hh_fwd(w_hh: torch.Tensor, layout: TensorCoreLayout
+                  ) -> torch.Tensor:
+    """K4's ``W_hh``: ``(fwd_grid[0] * TC_FWD_ROWS, Hp)``, zero past H.
+    With n = TC_FWD_ROWS / 4 units a block, block u's rows are ``W_hh``
+    rows ``g * H + n * u + jj`` in order ``(g, jj)``: all four gates of
+    its n units."""
+    H, n = w_hh.shape[1], TC_FWD_ROWS // 4
+    out = w_hh.new_zeros((layout.fwd_grid[0] * n, 4, layout.hp))
+    out[:H, :, :H] = w_hh.view(4, H, H).transpose(0, 1)  # [unit][gate][k]
+    return out.view(-1, n, 4, layout.hp).transpose(1, 2) \
+        .reshape(-1, layout.hp)
+
+
+def pack_w_hh_bwd(w_hh: torch.Tensor, layout: TensorCoreLayout
+                  ) -> torch.Tensor:
+    """K5's ``W_hh^T``: ``(bwd_grid[1] * TC_BWD_ROWS, 4 * Hp)``, zero past
+    H: row j, column ``g * Hp + k`` holds ``W_hh[g * H + k, j]``."""
+    H = w_hh.shape[1]
+    out = w_hh.new_zeros((layout.bwd_grid[1] * TC_BWD_ROWS, 4,
+                          layout.hp))
+    out[:H, :, :H] = w_hh.view(4, H, H).permute(2, 0, 1)
+    return out.view(-1, 4 * layout.hp)
+
+
 def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
                        h0: torch.Tensor, c0: torch.Tensor,
                        with_gates: bool = False):
@@ -193,16 +250,24 @@ def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
     else:
         c_scratch = torch.empty((B, H), **kw)
         lib = _build.load("fused_lstm", _bind)
-        ptrs = [x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
-                c0.data_ptr(), out.data_ptr()]
         if with_gates:
-            ptrs += [gates.data_ptr(), c_seq.data_ptr()]
-        ptrs += [h_t.data_ptr(), c_t.data_ptr(), c_scratch.data_ptr()]
-        entry = (lib.fused_lstm_forward_gates if with_gates
-                 else lib.fused_lstm_forward)
+            w_pack, h_pad, tc = None, None, [0, 0, 0]
+            if x_proj.dtype == torch.bfloat16:  # the tensor-core step
+                lay = tc_layout(B, H)
+                w_pack = pack_w_hh_fwd(w_hh, lay)
+                h_pad = torch.zeros((2, B, lay.hp), **kw)
+                h_pad[0, :, :H] = h0
+                tc = [lay.hp, *lay.fwd_grid]
+            entry, args = lib.fused_lstm_forward_gates, [
+                x_proj, w_hh, w_pack, h0, h_pad, c0, out, gates, c_seq,
+                h_t, c_t, c_scratch]
+        else:
+            entry, args = lib.fused_lstm_forward, [
+                x_proj, w_hh, h0, c0, out, h_t, c_t, c_scratch]
+            tc = []
         with torch.cuda.device(x_proj.device):
-            err = entry(_DTYPE_CODES[x_proj.dtype], *ptrs, T, B, H,
-                        torch.cuda.current_stream().cuda_stream)
+            err = entry(_DTYPE_CODES[x_proj.dtype], *_ptrs(args), T, B, H,
+                        *tc, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             msg = lib.fused_lstm_error_string(err).decode()
             raise RuntimeError(f"{name} fused_lstm_forward launch failed: "
@@ -212,6 +277,10 @@ def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if with_gates:
         return out, (gates, c_seq), (h_t, c_t)
     return out, (h_t, c_t)
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def fused_lstm_forward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -306,13 +375,18 @@ def fused_lstm_backward(gates: torch.Tensor, c_prev: torch.Tensor,
     dz = torch.empty((T, B, 4 * H), **kw)
     dh0 = torch.empty((B, H), **kw)
     dc0 = torch.empty((B, H), **kw)
+    w_pack, dz_pad, tc = None, None, [0, 0, 0, 0]
+    if dtype == torch.bfloat16:  # the tensor-core step
+        lay = tc_layout(B, H)
+        w_pack = pack_w_hh_bwd(w_hh, lay)
+        dz_pad = torch.zeros((2, B, 4 * lay.hp), **kw)
+        tc = [lay.hp, *lay.bwd_grid]
     lib = _build.load("fused_lstm", _bind)
     with torch.cuda.device(gates.device):
         err = lib.fused_lstm_backward(
-            _DTYPE_CODES[dtype], gates.data_ptr(), c_prev.data_ptr(),
-            d_out.data_ptr(), w_hh.data_ptr(), dh_t.data_ptr(),
-            dc.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T,
-            B, H, torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[dtype], *_ptrs([gates, c_prev, d_out, w_hh, w_pack,
+                                         dh_t, dc, dz, dz_pad, dh0, dc0]),
+            T, B, H, *tc, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.fused_lstm_error_string(err).decode()
         raise RuntimeError(f"K5 fused_lstm_backward launch failed: {msg} "

@@ -31,8 +31,13 @@ B, T, SEED, WARM, TRACED = 104, 67, 0, 2, 2
 
 
 def kernel_name(key: str) -> str:
-    """K4-K7 by name; K4 is lstm_step's kGates instantiation (its last
-    template argument true), mangled or demangled."""
+    """K4-K7 by name. In bf16, K4 and K5 are the tensor-core steps; in f32
+    K4 is lstm_step's kGates instantiation (its last template argument
+    true), mangled or demangled."""
+    if "lstm_fwd_tc_step" in key:
+        return "K4 lstm_fwd_tc_step"
+    if "lstm_bwd_tc_step" in key:
+        return "K5 lstm_bwd_tc_step"
     if "forget_mult_bwd" in key:
         return "K7 forget_mult_bwd"
     if "forget_mult_fwd" in key:

@@ -162,7 +162,11 @@ K5_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 3e-2)}
 # bf16 where K5 carries f32, so the two differ by a few bf16 ulps (2^-8).
 LAYER_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
-SHAPES = [(7, 5, 40), (3, 33, 130), (1, 1, 8), (2, 17, 1030)]
+# then: B and H not multiples of 8, more batch rows than a bf16 block
+# takes (112), and the training shapes, where the bf16 kernels run on the
+# tensor cores
+SHAPES = [(7, 5, 40), (3, 33, 130), (1, 1, 8), (2, 17, 1030), (5, 13, 37),
+          (3, 150, 72), (67, 104, 2500), (67, 104, 800)]
 
 
 @pytest.mark.cuda
@@ -183,10 +187,16 @@ def test_k4_matches_plain(cuda_device, dtype, T, B, H):
         assert g.dtype == dtype and g.shape == w.shape
         err = (g.float() - w.float()).abs().max().item()
         assert err <= ATOL[dtype], err
-    # K1's instantiation is untouched: the same outputs without residuals
+    # K1 gives K4's outputs without the residuals: the same kernel in f32.
+    # In bf16 K4 sums on the tensor cores in another order, so a step may
+    # round h one bf16 ulp apart, and the recurrence carries that on: held
+    # to two bf16 ulps (2 * 2^-7 relative) of each tensor's largest value
     out1, (h1, c1) = K1.fused_lstm_forward(*args)
-    assert torch.equal(out1, out) and torch.equal(h1, h)
-    assert torch.equal(c1, c)
+    for a, b in ((out1, out), (h1, h), (c1, c)):
+        a, b = a.float(), b.float()
+        top = torch.floor(torch.log2(b.abs().max())).item()
+        tol = 0.0 if dtype == torch.float32 else 2 * 2.0 ** (top - 7)
+        assert (a - b).abs().max().item() <= tol
 
 
 def _k5_args(T, B, H, device, dtype, seed=0):

@@ -127,6 +127,38 @@ def test_k5_wrapper_checks():
         K.fused_lstm_backward(*(a.half() for a in (g, c, d, w, dh, dc)))
 
 
+# the bf16 K4 and K5 on the card read W_hh packed by these helpers; their
+# blocks: K4 20 hidden units (80 W_hh rows), K5 96 units x 4 gate slabs,
+# so at H=2500 both grids fit the H100's 132 SMs, a block each
+@pytest.mark.parametrize("H,fwd_grid,bwd_grid", [
+    (40, (2, 1), (4, 1, 1)), (800, (40, 1), (4, 9, 1)),
+    (2500, (125, 1), (4, 27, 1))])
+def test_tensor_core_layout_packs_w_hh(H, fwd_grid, bwd_grid):
+    lay = K.tc_layout(104, H)
+    assert lay.hp % 64 == 0 and H <= lay.hp < H + 64
+    # K5's clusters are the 4 gate slabs, along the grid's x
+    assert (lay.fwd_grid, lay.bwd_grid) == (fwd_grid, bwd_grid)
+    assert K.tc_layout(113, H).fwd_grid[1] == 2  # 112 batch rows a block
+    rng = np.random.default_rng(H)
+    w = torch.from_numpy(rng.standard_normal((4 * H, H), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    fwd, bwd = K.pack_w_hh_fwd(w, lay), K.pack_w_hh_bwd(w, lay)
+    assert fwd.dtype == bwd.dtype == torch.bfloat16
+    rows, units = K.TC_FWD_ROWS, K.TC_FWD_ROWS // 4
+    assert fwd.shape == (fwd_grid[0] * rows, lay.hp)
+    assert bwd.shape == (bwd_grid[1] * K.TC_BWD_ROWS, 4 * lay.hp)
+    # W_hh once, zeros elsewhere
+    assert fwd.count_nonzero() == bwd.count_nonzero() == w.count_nonzero()
+    # K4: row rows*u + units*g + jj is W_hh row g*H + units*u + jj
+    r = torch.arange(fwd.shape[0])
+    unit, gate = units * (r // rows) + r % units, (r % rows) // units
+    live = unit < H
+    assert torch.equal(fwd[live, :H], w[(gate * H + unit)[live]])
+    # K5: row j, column g*Hp + k is W_hh[g*H + k, j]
+    assert torch.equal(bwd[:H].view(H, 4, lay.hp)[..., :H],
+                       w.view(4, H, H).permute(2, 0, 1))
+
+
 def _layer_inputs(B, T, n_in, H, seed):
     rng = np.random.default_rng(seed)
     s = 1.0 / np.sqrt(H)
