@@ -15,9 +15,11 @@ on failure (exit code 1, and no result line):
 3. Each kernel against its plain PyTorch version on the card, on the same
    inputs, in f32 and bf16, at a small odd shape and at the shapes the
    serve paths give it, within the tolerances below: K1 at B=32, T=64
-   (the slot step), H=2500 and H=800; K2 (ragged) and K3 (ragged, int8
-   W_hh) at B=32, T=16 (the ragged step), with valid lengths of 0, 1,
-   mid-step and full, and a case whose second batch tile is all dead;
+   (the slot step), H=2500 and H=800, and in bf16 at the validation
+   window's T=67, B=104, H=2500 (the tensor-core step's 112-row tile); K2
+   (ragged) and K3 (ragged, int8 W_hh) at B=32, T=16 (the ragged step),
+   with valid lengths of 0, 1, mid-step and full, and a case whose second
+   half of the batch is all dead; bf16 K1 and K2 run on the tensor cores;
    K4 (forward with the training residuals) and K5 (its adjoint; both on
    the tensor cores in bf16) at T=7/B=5/H=40, at T=5/B=13/H=37 (B and H
    not multiples of 8) and at the training shapes T=67, B=104, H=2500 and
@@ -71,10 +73,13 @@ on failure (exit code 1, and no result line):
 6. Timing with CUDA events, beside the least time the card could take
    and a library yardstick the port never calls: K1 at B=32, T=512,
    H=2500 in bf16 against cuDNN's ``torch.nn.LSTM`` on the same layer (it
-   includes the input projection); K2 and K3 at the ragged step (B=32,
-   T=16, H=2500, bf16 activations, K3 with int8 W_hh) with mixed valid
-   lengths, K2 against cuDNN's LSTM over a ``pack_padded_sequence`` of the
-   same lengths. K3 has no single PyTorch call for the same function.
+   includes the input projection), and at the slot step (T=64); K2 and
+   K3 at the ragged step (B=32, T=16, H=2500, bf16 activations, K3 with
+   int8 W_hh) with mixed valid lengths, K2 against cuDNN's LSTM over a
+   ``pack_padded_sequence`` of the same lengths. K3 has no single PyTorch
+   call for the same function. K1 and K2 run on ``W_hh`` packed
+   beforehand, as a served model holds it; the pack's own time is
+   printed beside them.
    K4 and K5 at T=67, B=104, H=2500, bf16, against cuDNN's LSTM forward
    and its backward to the initial state only (no weight gradients; cuDNN
    still computes the input gradient), timed apart; ms per training
@@ -94,6 +99,7 @@ without a result when there is no CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import http.client
 import json
 import math
@@ -271,7 +277,8 @@ def k1_bound_ms(T, B, H, dtype, valid=None, w_item=None):
 def valid_cases(T, B):
     """Valid lengths per row: ``mixed`` holds 0, 1, mid-step and full
     (t_live = T); ``short`` stops at mid-step and leaves the second half
-    of the batch, a whole 16-row tile at B=32, dead (t_live = T // 2)."""
+    of the batch dead (t_live = T // 2): at B=32 a whole 16-row tile of
+    the CUDA-core step, two n8 tiles of the tensor-core one."""
     mixed = [(0, 1, T // 2, T)[b % 4] for b in range(B)]
     short = [(0, 1, T // 2)[b % 3] if b < max(1, B // 2) else 0
              for b in range(B)]
@@ -321,8 +328,11 @@ def kernel_checks() -> dict:
     """Phase 3: every kernel against its plain version; max |diff| by
     kernel and case."""
     errs = {"K1": {}, "K2": {}, "K3": {}}
-    for T, B, H in ((7, 5, 40), (64, 32, 2500), (64, 32, 800)):
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for T, B, H, dtypes in ((7, 5, 40, both), (64, 32, 2500, both),
+                            (64, 32, 800, both),
+                            (TRAIN_BPTT, TRAIN_BS, 2500, (torch.bfloat16,))):
+        for dtype in dtypes:
             key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
             errs["K1"][key] = check_k1(T, B, H, dtype)
             print(f"K1 vs plain {key}: max |diff| {errs['K1'][key]:.3g} "
@@ -467,13 +477,24 @@ def serve_paths(model_dir: Path, docs, cfg: AWDLSTMConfig = FLAGSHIP,
     return {"slots": slots, "ragged": ragged, "ragged_int8": int8}
 
 
+def serve_pack(w_hh, B):
+    """W_hh packed for the bf16 tensor-core K1/K2 at batch B, as a frozen
+    encoder holds it, and the ms the pack takes."""
+    lay = K1.tc_layout(B, w_hh.shape[1])
+    pack_ms = cuda_ms(lambda: K1.pack_w_hh_fwd(w_hh, lay), reps=5)
+    return K1.pack_w_hh_fwd(w_hh, lay), pack_ms
+
+
 def timing_phase() -> dict:
     T, B, H, dtype = 512, 32, 2500, torch.bfloat16
     args = k1_inputs(T, B, H, dtype, seed=SEED + 1)
-    ms = cuda_ms(lambda: K1.fused_lstm_forward(*args), reps=3)
+    w_pack, pack_ms = serve_pack(args[1], B)
+    ms = cuda_ms(lambda: K1.fused_lstm_forward(*args, w_pack=w_pack), reps=3)
     plain_ms = cuda_ms(lambda: K1.fused_lstm_forward_plain(*args), reps=2)
     step_args = k1_inputs(64, B, H, dtype, seed=SEED + 2)
-    step_ms = cuda_ms(lambda: K1.fused_lstm_forward(*step_args), reps=5)
+    step_pack, _ = serve_pack(step_args[1], B)
+    step_ms = cuda_ms(lambda: K1.fused_lstm_forward(*step_args,
+                                                    w_pack=step_pack), reps=5)
     lstm = torch.nn.LSTM(H, H).to("cuda", dtype)
     x = torch.randn((T, B, H), device="cuda", dtype=dtype)
     state = (args[2][None], args[3][None])
@@ -487,7 +508,7 @@ def timing_phase() -> dict:
     item = 2
     return {"shape": {"T": T, "B": B, "H": H, "dtype": "bfloat16"},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "pack_ms": pack_ms,
             # a design that streams W_hh from HBM every step can do no better
             "weight_stream_bound_ms": T * 4 * H * H * item
             / HBM_BYTES_PER_S * 1e3,
@@ -505,8 +526,11 @@ def ragged_timing_phase() -> dict:
                      "valid_lens": valid}}
     for name, int8 in (("K2", False), ("K3", True)):
         args = ragged_inputs(T, B, H, dtype, valid, int8, seed=SEED + 4)
-        kernel = (K1.fused_lstm_forward_ragged_int8 if int8
-                  else K1.fused_lstm_forward_ragged)
+        kernel = K1.fused_lstm_forward_ragged_int8
+        if not int8:  # on W_hh packed once, as the served encoder holds it
+            w_pack, out["K2_pack_ms"] = serve_pack(args[1], B)
+            kernel = functools.partial(K1.fused_lstm_forward_ragged,
+                                       w_pack=w_pack)
         plain = (K1.fused_lstm_forward_ragged_int8_plain if int8
                  else K1.fused_lstm_forward_ragged_plain)
         bound_ms, bound_by = k1_bound_ms(T, B, H, dtype, valid,

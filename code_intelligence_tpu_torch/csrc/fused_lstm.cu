@@ -21,7 +21,11 @@
 // gates i, f, g, o (B, 4H) and the carry c it read (B, H), both rounded to
 // the input dtype as the TPU kernel stores them, since K5 recomputes from
 // those rounded values. In f32 it is the kGates instantiation of K1's
-// template; in bf16 it runs on the tensor cores (lstm_fwd_tc_step, below).
+// template.
+//
+// In bf16, K1, K2 and K4 are one tensor-core step (lstm_fwd_tc_step, at the
+// end of the file) with three epilogues; the CUDA-core template below
+// serves f32 K1, K2 and K4, and K3 in both activation types.
 //
 // K2 replaces fused_lstm_forward_ragged (body _ragged_kernel): K1 plus
 // valid_lens (B,) int32 on the device. Row b is live at step t while
@@ -51,7 +55,7 @@
 // where they need at least 24 us, so at B=32 the FMAs, not the bytes, set
 // their floor.
 //
-// Design, simple first (one template serves all three kernels):
+// Design, simple first (one template serves the CUDA-core K1-K4):
 //  * One launch per time step; the host loop enqueues the launches on the
 //    caller's stream, which orders the steps. K1 reads h_{t-1} back from
 //    out[t-1]; K2 and K3 write zeros there for dead rows, so they carry h
@@ -74,8 +78,9 @@
 //    vector load is 4 codes (one char4).
 //  * Batch tiles are the fastest-varying block index, so the blocks that
 //    read the same W_hh rows run together and the second read hits L2.
-//  K1-K3 and the f32 K4 and K5 do their product on the CUDA cores; the
-//  bf16 K4 and K5 do it on the tensor cores (end of the file).
+//  Of these, the f32 K1, K2, K4 and K5 and both K3s do their product on the
+//  CUDA cores; the bf16 K1, K2, K4 and K5 do it on the tensor cores (end
+//  of the file).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -401,8 +406,27 @@ int run(const void* x_proj, const void* w_hh, const void* h0, const void* c0,
   return (int)cudaGetLastError();
 }
 
-// K2 (W = T) and K3 (W = int8_t): t_live launches, then the dead tail of out
-// is zero-filled. With t_live = 0 the carry is h0, c0.
+// What K2 and K3 do around their t_live launches: the dead tail of out is
+// zero-filled, and with t_live = 0 the carry is h0, c0 (*done: no step runs).
+template <typename T>
+cudaError_t ragged_prologue(void* out, const void* h0, const void* c0,
+                            void* h_t, void* c_t, int T_len, int t_live,
+                            size_t BH, cudaStream_t stream, bool* done) {
+  cudaError_t err = cudaSuccess;
+  *done = t_live == 0;
+  if (t_live < T_len)
+    err = cudaMemsetAsync(static_cast<T*>(out) + (size_t)t_live * BH, 0,
+                          (size_t)(T_len - t_live) * BH * sizeof(T), stream);
+  if (err == cudaSuccess && *done)
+    err = cudaMemcpyAsync(h_t, h0, BH * sizeof(T), cudaMemcpyDeviceToDevice,
+                          stream);
+  if (err == cudaSuccess && *done)
+    err = cudaMemcpyAsync(c_t, c0, BH * sizeof(T), cudaMemcpyDeviceToDevice,
+                          stream);
+  return err;
+}
+
+// K2 in f32 (W = T) and K3 (W = int8_t): t_live launches.
 template <typename T, typename W>
 int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
                const int* valid, const void* h0, const void* c0, void* out,
@@ -411,20 +435,10 @@ int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
   const T* xp = static_cast<const T*>(x_proj);
   T* o = static_cast<T*>(out);
   const size_t BH = (size_t)B * H;
-  cudaError_t err = cudaSuccess;
-  if (t_live < T_len) {
-    err = cudaMemsetAsync(o + (size_t)t_live * BH, 0,
-                          (size_t)(T_len - t_live) * BH * sizeof(T), stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (t_live == 0) {
-    err = cudaMemcpyAsync(h_t, h0, BH * sizeof(T), cudaMemcpyDeviceToDevice,
-                          stream);
-    if (err == cudaSuccess)
-      err = cudaMemcpyAsync(c_t, c0, BH * sizeof(T),
-                            cudaMemcpyDeviceToDevice, stream);
-    return (int)err;
-  }
+  bool done = false;
+  cudaError_t err = ragged_prologue<T>(out, h0, c0, h_t, c_t, T_len, t_live,
+                                       BH, stream, &done);
+  if (err != cudaSuccess || done) return (int)err;
   const dim3 grid((B + kBatchTile - 1) / kBatchTile, (H + kUnits - 1) / kUnits);
   const auto step = H % 4 == 0 ? lstm_step<T, W, true, true, false>
                                : lstm_step<T, W, false, true, false>;
@@ -602,55 +616,71 @@ int run_bwd(const void* gates, const void* c_seq, const void* d_out,
 }
 
 // ---------------------------------------------------------------------------
-// K4 and K5 in bf16 on the tensor cores.
+// K1, K2, K4 and K5 in bf16 on the tensor cores.
 //
 // What bounded the CUDA-core versions above at the training shape (T=67,
 // B=104, H=2500): each step's product, 2*B*4H*H = 5.2 GFLOP, ran as f32
 // FMAs (>= 78 us a step at 67 TFLOP/s), and K5's 7 batch tiles each
 // streamed all of W_hh, so it was read 7 times a step. Here a block owns a
-// tile of W_hh's rows (K4) or columns (K5) for every batch row at once,
-// with the batch as the MMA's N dimension, so W_hh is read once a step,
-// and the product runs as mma.sync.m16n8k16 (bf16 in, f32 accumulate: the
-// operands and sums of the TPU kernel's jnp.dot with
+// tile of W_hh's rows (K1, K2, K4) or columns (K5) for every batch row at
+// once, with the batch as the MMA's N dimension, so W_hh is read once a
+// step, and the product runs as mma.sync.m16n8k16 (bf16 in, f32
+// accumulate: the operands and sums of the TPU kernel's jnp.dot with
 // preferred_element_type=f32; only the order of the sum differs). The
 // floor of a step is then streaming W_hh (50 MB at H=2500, ~15 us at
-// 3.35 TB/s); the product itself needs ~5 us of the tensor cores.
+// 3.35 TB/s); the product itself needs ~5 us of the tensor cores at B=104.
 //
 // mma.sync and cp.async, not wgmma and TMA: a step is short, the tile is
 // what wgmma would take too, and mma.sync's register fragments need no
-// descriptors. Measured on an H100 80GB HBM3 (700 W), a step at B=8, with
-// almost no MMA work, still took ~2/3 of a step at B=104: what remains is
-// latency (launch, the pipeline's fill, the epilogue), not the MMA issue.
+// descriptors. Measured on an H100 80GB HBM3 (700 W), a K4 step at B=8,
+// with almost no MMA work, still took ~2/3 of a step at B=104: what
+// remains is latency (launch, the pipeline's fill, the epilogue), not the
+// MMA issue.
 //
 // Layout. A bf16 row of H=2500 is 5000 bytes, which is not 16-byte aligned,
-// and 2500 is not a multiple of the MMA's K of 16. So the wrapper packs
-// W_hh once per call into a copy whose rows have a leading dimension Hp (a
-// multiple of kTcK, zero-filled past H), ordered for the kernel
-// (ops/fused_lstm.py: tc_layout, pack_w_hh_fwd, pack_w_hh_bwd), and the
-// kernels keep their own recurrent operand (K4: h, K5: dz) in zero-padded
-// (B, Hp) / (B, 4*Hp) scratches, two of each, written by the epilogue of
-// one step and read by the next. Every cp.async is then 16 bytes on a
-// 16-byte boundary, and batch rows past B are zero-filled in shared memory.
+// and 2500 is not a multiple of the MMA's K of 16. So W_hh is packed into a
+// copy whose rows have a leading dimension Hp (a multiple of kTcK,
+// zero-filled past H), ordered for the kernel (ops/fused_lstm.py:
+// tc_layout, pack_w_hh_fwd, pack_w_hh_bwd): K4 and K5 pack it per call,
+// the serve path once per loaded model (models/awd_lstm.py). The kernels
+// keep their own recurrent operand (h, or K5's dz) in zero-padded (B, Hp)
+// / (B, 4*Hp) scratches, two of each, written by the epilogue of one step
+// and read by the next. Every cp.async is then 16 bytes on a 16-byte
+// boundary, and batch rows past B are zero-filled in shared memory.
 //
 // The block: one per SM (the grids below fit the H100's 132 SMs at
 // H=2500), so its ring can be deep: 6 stages of 64-wide K slices of both
 // operands, ~50 KB of W_hh in flight per SM, as streaming at the HBM rate
 // needs. A warp per 16-row slice of the tile and half of each stage's k16
-// steps (kTcKSplit), over every batch row (14 n8 tiles, up to 112 rows; the
-// grid's z covers more). Fragments come from shared memory by ldmatrix
-// (rows padded to 72 elements, so the 8 row addresses of an 8x8 matrix hit
-// distinct banks), the next k16 step's while the current one's MMAs run.
-// The f32 sums go to shared memory as [batch][row]; the element-wise step
-// then runs from there, fused as before, each thread issuing all its
-// global loads before any arithmetic (one element at a time, their
-// latencies added up).
+// steps (kKSplit), over the block's batch rows (K4's tile: 14 n8 tiles, up
+// to 112 rows; the grid's z covers more). Fragments come from shared
+// memory by ldmatrix (rows padded to 72 elements, so the 8 row addresses of
+// an 8x8 matrix hit distinct banks), the next k16 step's while the current
+// one's MMAs run. The f32 sums go to shared memory as [batch][row]; the
+// element-wise step then runs from there, fused as before, each thread
+// issuing all its global loads before any arithmetic (one element at a
+// time, their latencies added up).
 //
-// K4 (lstm_fwd_tc_step): gates^T = W_hh . h_{t-1}^T. A block owns 20
-// hidden units, i.e. the 80 W_hh rows j, H+j, 2H+j, 3H+j of each, packed
-// contiguously, so the tile holds all four gates of its units and the
-// cell update needs no second pass. K is H: ceil(H/20) blocks (125 at
-// H=2500, 40 at H=800). It stores out[t], h into the next scratch, c, and
-// the residuals, rounded where the CUDA-core K4 rounds them.
+// The forward step (lstm_fwd_tc_step): gates^T = W_hh . h_{t-1}^T. A block
+// owns kRows/4 hidden units, i.e. the W_hh rows j, H+j, 2H+j, 3H+j of each,
+// packed contiguously, so the tile holds all four gates of its units and
+// the cell update needs no second pass. K is H: ceil(4H/kRows) blocks (125
+// at H=2500, 40 at H=800, with 80 rows). Its epilogue makes it one of
+// three kernels (FwdKind):
+//  * K4 stores out[t], h into the next scratch, c, and the residuals,
+//    rounded where the CUDA-core K4 rounds them;
+//  * K1 stores out[t], h and c only;
+//  * K2 reads valid_lens: a dead row (t >= valid[b]) writes out[t, b] = 0
+//    and carries its h (into the next scratch too) and c over unchanged.
+//    An n8 batch tile whose 8 rows are all dead gets no MMAs and is not
+//    staged, and a block with no live row skips its product, W_hh
+//    included: the counterpart of the TPU kernel's exhausted-tile skip.
+//    The host launches only t_live steps, as for the CUDA-core K2.
+// K4 always takes the 112-row tile above. K1 and K2 take it above
+// kTcServeBatch batch rows (the B=104 validation window) and the serve
+// tile (ServeTile) at or below: 32 batch rows, serving's batch
+// (inference/engine.py), so its ring stages, accumulators and epilogue are
+// sized for 4 n8 tiles and not 14.
 //
 // K5 (lstm_bwd_tc_step): dh^T = W_hh^T . dz[t+1]^T. A block owns 96 hidden
 // units j; the 4H sum is split over a cluster of 4 blocks, one per gate
@@ -671,26 +701,37 @@ constexpr int kTcStages = 6;
 constexpr int kTcKSplit = 2;     // warps splitting a stage's k16 steps
 constexpr int kTcLd = kTcK + 8;  // shared row stride, bf16 elements
 constexpr int kTcCluster = 4;    // K5: one block per gate slab
-static_assert(kTcBatch % 16 == 0, "batch rows go in pairs of n8 tiles");
-static_assert((kTcK / 16) % kTcKSplit == 0, "k16 steps split evenly");
+constexpr int kTcFwdRows = 80;   // K4: 20 hidden units x 4 gates
+constexpr int kTcBwdRows = 96;   // K5: hidden units
+// K1 and K2 at B <= kTcServeBatch
+constexpr int kTcServeBatch = 32;  // 4 n8 tiles
+constexpr int kTcServeRows = 80;   // W_hh rows: 20 hidden units x 4 gates
+constexpr int kTcServeStages = 6;
+constexpr int kTcServeKSplit = 2;
 
-// A block's tile: kRows rows (K4: W_hh rows, K5: its columns) times up to
-// kTcBatch batch rows; a warp per 16-row slice and share of the k16 steps.
-template <int kRows>
+// A block's tile: kRows rows (the forward step: W_hh rows, K5: its
+// columns) times up to kBatch batch rows, K in kStages-deep slices of
+// kTcK; a warp per 16-row slice and share (one of kKSplit) of the k16
+// steps.
+template <int kRows_, int kBatch_, int kStages_, int kKSplit_>
 struct Tile {
+  static constexpr int kRows = kRows_, kBatch = kBatch_;
+  static constexpr int kStages = kStages_, kKSplit = kKSplit_;
   static_assert(kRows % 16 == 0, "16-row warp slices");
-  static constexpr int kThreads = kRows / 16 * kTcKSplit * 32;
+  static_assert(kBatch % 16 == 0 && kBatch <= 128,
+                "pairs of n8 tiles, a bit each in a 16-bit mask");
+  static_assert((kTcK / 16) % kKSplit == 0, "k16 steps split evenly");
+  static constexpr int kThreads = kRows / 16 * kKSplit * 32;
   static constexpr int kRedLd = kRows + 4;  // f32 stride of sums [batch][row]
-  static constexpr int kSumElems = kTcBatch * kRedLd;  // one K split's sums
-  static constexpr int kStageElems = (kRows + kTcBatch) * kTcLd;
-  static constexpr int kSmem = kTcStages * kStageElems * (int)sizeof(bf16);
-  static_assert(kTcKSplit * kSumElems * 4 <= kSmem, "the sums reuse the ring");
+  static constexpr int kSumElems = kBatch * kRedLd;  // one K split's sums
+  static constexpr int kStageElems = (kRows + kBatch) * kTcLd;
+  static constexpr int kSmem = kStages * kStageElems * (int)sizeof(bf16);
+  static_assert(kKSplit * kSumElems * 4 <= kSmem, "the sums reuse the ring");
 };
-constexpr int kTcFwdRows = 80;              // K4: 20 hidden units x 4 gates
-constexpr int kTcFwdUnits = kTcFwdRows / 4;
-constexpr int kTcBwdRows = 96;              // K5: hidden units
-using FwdTile = Tile<kTcFwdRows>;
-using BwdTile = Tile<kTcBwdRows>;
+using FwdTile = Tile<kTcFwdRows, kTcBatch, kTcStages, kTcKSplit>;
+using BwdTile = Tile<kTcBwdRows, kTcBatch, kTcStages, kTcKSplit>;
+using ServeTile =
+    Tile<kTcServeRows, kTcServeBatch, kTcServeStages, kTcServeKSplit>;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -731,21 +772,33 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 
 // sums[n][m] = sum over k < n_k * kTcK of a[m][k] * b[n][k], for the tile's
 // kRows rows m of a (row stride lda) and the nb rows n of b (row stride
-// ldb), written to `sums` (stride kRedLd, aliasing `ring`) as kTcKSplit
-// partial sums kSumElems apart (tc_sum adds them). Called by every thread
-// of the block; ends with the sums visible to the block.
-template <int kRows>
+// ldb), written to `sums` (stride kRedLd, aliasing `ring`) as kKSplit
+// partial sums kSumElems apart (tc_sum adds them). Both n8 tiles of every
+// pair that holds a row are computed (rows past nb are zero-filled). With
+// kMask (K2) only the n8 tiles marked in `live` are (bit i: rows 8i ..
+// 8i+7): an unmarked tile gets no MMAs and no sums, a pair of them is not
+// staged, and with no tile marked nothing is read at all. Called by every
+// thread of the block with the same `live`; ends with the sums visible to
+// the block.
+template <class Tl, bool kMask = false>
 __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
                                            size_t lda,
                                            const bf16* __restrict__ b,
-                                           size_t ldb, int nb, int n_k,
-                                           bf16* ring, float* sums) {
-  using Tl = Tile<kRows>;
+                                           size_t ldb, int nb, unsigned live,
+                                           int n_k, bf16* ring, float* sums) {
+  if (kMask && live == 0) return;
+  constexpr int kRows = Tl::kRows, kPairs = Tl::kBatch / 16;
   const int tid = threadIdx.x, lane = tid & 31;
   const int warp = (tid >> 5) % (kRows / 16);  // the warp's 16-row slice
   const int split = (tid >> 5) / (kRows / 16);  // its share of each stage
-  constexpr int kSteps = kTcK / 16 / kTcKSplit;   // k16 steps per stage
-  const int n_pairs = (nb + 15) / 16;  // pairs of n8 tiles that hold rows
+  constexpr int kSteps = kTcK / 16 / Tl::kKSplit;  // k16 steps per stage
+  // pairs of n8 tiles staged: those that hold rows, or up to the last
+  // marked tile
+  const int n_pairs = kMask ? (33 - __clz(live)) / 2 : (nb + 15) / 16;
+  auto tile_on = [&](int nt) { return !kMask || ((live >> nt) & 1u); };
+  auto pair_on = [&](int p) {  // the same for the whole block
+    return kMask ? ((live >> (2 * p)) & 3u) != 0 : p < n_pairs;
+  };
   auto load = [&](int slot, int kt) {
     bf16* sa = ring + slot * Tl::kStageElems;
     bf16* sb = sa + kRows * kTcLd;
@@ -757,47 +810,47 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
     }
     for (int i = tid; i < n_pairs * 16 * kChunks; i += Tl::kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool live = r < nb;
+      const bool row = r < nb && tile_on(r >> 3);
       cp_async16(smem_addr(sb + r * kTcLd + c),
-                 b + (live ? r : 0) * ldb + k0 + c, live);
+                 b + (row ? r : 0) * ldb + k0 + c, row);
     }
   };
-  float acc[kTcBatch / 8][4];
+  float acc[Tl::kBatch / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < kTcBatch / 8; ++nt)
+  for (int nt = 0; nt < Tl::kBatch / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 
-  for (int s = 0; s < kTcStages - 1; ++s) {
+  for (int s = 0; s < Tl::kStages - 1; ++s) {
     if (s < n_k) load(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kTcStages - 2>();  // slice kt has landed
-    __syncthreads();                 // and every warp is done with kt - 1
-    const int next = kt + kTcStages - 1;
-    if (next < n_k) load(next % kTcStages, next);
+    cp_async_wait<Tl::kStages - 2>();  // slice kt has landed
+    __syncthreads();                   // and every warp is done with kt - 1
+    const int next = kt + Tl::kStages - 1;
+    if (next < n_k) load(next % Tl::kStages, next);
     cp_async_commit();
-    const bf16* sa = ring + (kt % kTcStages) * Tl::kStageElems;
+    const bf16* sa = ring + (kt % Tl::kStages) * Tl::kStageElems;
     const bf16* sb = sa + kRows * kTcLd;
     // Fragments of k16 step kk: a (rows warp*16 .. +15) and, for each pair
     // p of n8 tiles, b0 and b1 of tiles 2p and 2p + 1. The asm statements
     // keep their order, so step kk + 1's loads are written before step
     // kk's MMAs: they are in flight while the tensor cores work.
-    unsigned af[2][4], bfr[2][kTcBatch / 16][4];
-    auto load_frags = [&](int kk, unsigned (&a)[4],
-                          unsigned (&b)[kTcBatch / 16][4]) {
+    unsigned af[2][4], bfr[2][kPairs][4];
+    auto load_frags = [&](int kk, unsigned (&fa)[4],
+                          unsigned (&fb)[kPairs][4]) {
       ldmatrix_x4(smem_addr(sa + (warp * 16 + (lane & 15)) * kTcLd +
                             kk * 16 + (lane >> 4) * 8),
-                  a);
+                  fa);
 #pragma unroll
-      for (int p = 0; p < kTcBatch / 16; ++p)
-        if (p < n_pairs)  // the same for the whole warp
+      for (int p = 0; p < kPairs; ++p)
+        if (pair_on(p))
           ldmatrix_x4(smem_addr(sb +
                                 (p * 16 + (lane & 7) + ((lane >> 4) << 3)) *
                                     kTcLd +
                                 kk * 16 + ((lane >> 3) & 1) * 8),
-                      b[p]);
+                      fb[p]);
     };
     const int k_first = split * kSteps;
     load_frags(k_first, af[0], bfr[0]);
@@ -806,12 +859,14 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
       if (kk + 1 < kSteps)
         load_frags(k_first + kk + 1, af[(kk + 1) % 2], bfr[(kk + 1) % 2]);
 #pragma unroll
-      for (int p = 0; p < kTcBatch / 16; ++p) {
-        if (p < n_pairs) {
-          mma_bf16(acc[2 * p], af[kk % 2], bfr[kk % 2][p][0],
-                   bfr[kk % 2][p][1]);
-          mma_bf16(acc[2 * p + 1], af[kk % 2], bfr[kk % 2][p][2],
-                   bfr[kk % 2][p][3]);
+      for (int p = 0; p < kPairs; ++p) {
+        if (kMask || p < n_pairs) {  // K2: each tile's own bit below
+          if (tile_on(2 * p))
+            mma_bf16(acc[2 * p], af[kk % 2], bfr[kk % 2][p][0],
+                     bfr[kk % 2][p][1]);
+          if (tile_on(2 * p + 1))
+            mma_bf16(acc[2 * p + 1], af[kk % 2], bfr[kk % 2][p][2],
+                     bfr[kk % 2][p][3]);
         }
       }
     }
@@ -821,8 +876,8 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
   // accumulator (m, n): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
   const int m = warp * 16 + (lane >> 2), n = 2 * (lane & 3);
 #pragma unroll
-  for (int nt = 0; nt < kTcBatch / 8; ++nt) {
-    if (nt < 2 * n_pairs) {
+  for (int nt = 0; nt < Tl::kBatch / 8; ++nt) {
+    if (kMask ? tile_on(nt) : nt < 2 * n_pairs) {
       float* s = sums + split * Tl::kSumElems + (nt * 8 + n) * Tl::kRedLd + m;
       s[0] = acc[nt][0];
       s[Tl::kRedLd] = acc[nt][1];
@@ -834,71 +889,109 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
 }
 
 // The product's sum at index i of `sums`: its K splits added.
-template <int kRows>
+template <class Tl>
 __device__ __forceinline__ float tc_sum(const float* sums, int i) {
   float v = 0.0f;
 #pragma unroll
-  for (int s = 0; s < kTcKSplit; ++s) v += sums[s * Tile<kRows>::kSumElems + i];
+  for (int s = 0; s < Tl::kKSplit; ++s) v += sums[s * Tl::kSumElems + i];
   return v;
 }
 
-// K4's step t on the tensor cores. w_pack is (tiles * kTcFwdRows, Hp): tile
-// u's rows are W_hh rows g*H + kTcFwdUnits*u + jj in order (g, jj), zero
-// past H.
-__global__ void __launch_bounds__(FwdTile::kThreads, 1)
+enum class FwdKind { kK1, kK2, kK4 };
+
+// The forward step t on the tensor cores, with K1's, K2's or K4's
+// epilogue. w_pack is (tiles * kRows, Hp): tile u's rows are W_hh rows
+// g*H + (kRows/4)*u + jj in order (g, jj), zero past H.
+template <class Tl, FwdKind kKind>
+__global__ void __launch_bounds__(Tl::kThreads, 1)
 lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
                  const bf16* __restrict__ w_pack,  // (., Hp)
+                 const int* __restrict__ valid,    // K2: (B,)
+                 int t,                            // K2: this step
                  const bf16* __restrict__ h_in,    // (B, Hp) h_{t-1}
                  const bf16* __restrict__ c_prev,  // (B, H)
                  bf16* __restrict__ h_next,        // (B, Hp) h_t
                  bf16* __restrict__ c_out,         // (B, H)
                  bf16* __restrict__ out,           // (B, H) out[t]
                  bf16* __restrict__ h_last,        // (B, H) or null
-                 bf16* __restrict__ gates_out,     // (B, 4H)
-                 bf16* __restrict__ c_seq_out,     // (B, H)
+                 bf16* __restrict__ gates_out,     // K4: (B, 4H)
+                 bf16* __restrict__ c_seq_out,     // K4: (B, H)
                  int B, int H, int Hp) {
+  constexpr int kUnitsT = Tl::kRows / 4;  // the block's hidden units
+  constexpr bool kRag = kKind == FwdKind::kK2;
+  static_assert(!kRag || Tl::kThreads >= Tl::kBatch, "a thread per row");
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned live_rows[(Tl::kBatch + 31) / 32];  // K2: a bit a row
   float* sums = reinterpret_cast<float*>(smem);
-  const int u0 = blockIdx.x * kTcFwdUnits, b0 = blockIdx.y * kTcBatch;
-  const int nb = min(kTcBatch, B - b0);
-  tc_product<kTcFwdRows>(w_pack + (size_t)blockIdx.x * kTcFwdRows * Hp, Hp,
-             h_in + (size_t)b0 * Hp, Hp, nb, Hp / kTcK,
-             reinterpret_cast<bf16*>(smem), sums);
+  const int u0 = blockIdx.x * kUnitsT, b0 = blockIdx.y * Tl::kBatch;
+  const int nb = min(Tl::kBatch, B - b0);
+  unsigned live = 0;  // K2: the n8 tiles with a row live at step t
+  if constexpr (kRag) {  // the rows live at step t, and their n8 tiles
+    const int r = threadIdx.x;
+    const unsigned word =
+        __ballot_sync(0xffffffffu, r < nb && t < valid[b0 + r]);
+    if ((r & 31) == 0 && r < Tl::kBatch) live_rows[r >> 5] = word;
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < Tl::kBatch / 8; ++nt)
+      if ((live_rows[nt >> 2] >> ((nt & 3) * 8)) & 0xffu) live |= 1u << nt;
+  }
+  auto row_live = [&](int bb) {
+    return !kRag || ((live_rows[bb >> 5] >> (bb & 31)) & 1u);
+  };
+  tc_product<Tl, kRag>(w_pack + (size_t)blockIdx.x * Tl::kRows * Hp, Hp,
+                       h_in + (size_t)b0 * Hp, Hp, nb, live, Hp / kTcK,
+                       reinterpret_cast<bf16*>(smem), sums);
   // The cell update of the block's (b, j) pairs, kEpi a thread: every
   // global load first, so their latencies overlap, then the arithmetic.
+  // A dead K2 row loads its carry instead: h into pre[e][0], c into cp.
   constexpr int kEpi =
-      (kTcBatch * kTcFwdUnits + FwdTile::kThreads - 1) / FwdTile::kThreads;
+      (Tl::kBatch * kUnitsT + Tl::kThreads - 1) / Tl::kThreads;
   float pre[kEpi][4], cp[kEpi];
 #pragma unroll
   for (int e = 0; e < kEpi; ++e) {
-    const int p = threadIdx.x + e * FwdTile::kThreads;
-    const int bb = p / kTcFwdUnits, jj = p % kTcFwdUnits, j = u0 + jj;
+    const int p = threadIdx.x + e * Tl::kThreads;
+    const int bb = p / kUnitsT, jj = p % kUnitsT, j = u0 + jj;
     if (bb >= nb || j >= H) continue;
+    if (!row_live(bb)) {
+      pre[e][0] = to_f32(h_in[(size_t)(b0 + bb) * Hp + j]);
+      cp[e] = to_f32(c_prev[(size_t)(b0 + bb) * H + j]);
+      continue;
+    }
     const bf16* xp = x_proj + (size_t)(b0 + bb) * 4 * H + j;
 #pragma unroll
     for (int g = 0; g < 4; ++g)
       pre[e][g] = to_f32(xp[g * H]) +
-                  tc_sum<kTcFwdRows>(
-                      sums, bb * FwdTile::kRedLd + g * kTcFwdUnits + jj);
+                  tc_sum<Tl>(sums, bb * Tl::kRedLd + g * kUnitsT + jj);
     cp[e] = to_f32(c_prev[(size_t)(b0 + bb) * H + j]);
   }
 #pragma unroll
   for (int e = 0; e < kEpi; ++e) {
-    const int p = threadIdx.x + e * FwdTile::kThreads;
-    const int bb = p / kTcFwdUnits, jj = p % kTcFwdUnits, j = u0 + jj;
+    const int p = threadIdx.x + e * Tl::kThreads;
+    const int bb = p / kUnitsT, jj = p % kUnitsT, j = u0 + jj;
     if (bb >= nb || j >= H) continue;
     const int b = b0 + bb;
+    const size_t at = (size_t)b * H + j;
+    if (!row_live(bb)) {  // K2: the carry stays (exact: bf16 -> f32 -> bf16)
+      const bf16 h = from_f32<bf16>(pre[e][0]);
+      out[at] = from_f32<bf16>(0.0f);
+      h_next[(size_t)b * Hp + j] = h;
+      c_out[at] = from_f32<bf16>(cp[e]);
+      if (h_last != nullptr) h_last[at] = h;
+      continue;
+    }
     const float ig = sigmoid(pre[e][0]), fg = sigmoid(pre[e][1]);
     const float gg = tanhf(pre[e][2]), og = sigmoid(pre[e][3]);
-    const size_t at = (size_t)b * H + j;
     const float c = fg * cp[e] + ig * gg;
     const bf16 h = from_f32<bf16>(og * tanhf(c));
-    bf16* gt = gates_out + (size_t)b * 4 * H + j;  // rounded as K5 reads
-    gt[0] = from_f32<bf16>(ig);
-    gt[H] = from_f32<bf16>(fg);
-    gt[2 * H] = from_f32<bf16>(gg);
-    gt[3 * H] = from_f32<bf16>(og);
-    c_seq_out[at] = from_f32<bf16>(cp[e]);  // c_prev as stored: exact
+    if constexpr (kKind == FwdKind::kK4) {
+      bf16* gt = gates_out + (size_t)b * 4 * H + j;  // rounded as K5 reads
+      gt[0] = from_f32<bf16>(ig);
+      gt[H] = from_f32<bf16>(fg);
+      gt[2 * H] = from_f32<bf16>(gg);
+      gt[3 * H] = from_f32<bf16>(og);
+      c_seq_out[at] = from_f32<bf16>(cp[e]);  // c_prev as stored: exact
+    }
     out[at] = h;
     h_next[(size_t)b * Hp + j] = h;
     c_out[at] = from_f32<bf16>(c);
@@ -935,9 +1028,9 @@ lstm_bwd_tc_step(const bf16* __restrict__ dz_in,    // (B, 4Hp) dz[t+1]
   const size_t ldp = 4 * (size_t)Hp;
   const bool product = dz_in != nullptr;  // the same for the whole grid
   if (product) {
-    tc_product<kTcBwdRows>(w_pack + (size_t)j0 * ldp + (size_t)slab * Hp, ldp,
-               dz_in + (size_t)b0 * ldp + (size_t)slab * Hp, ldp, nb,
-               Hp / kTcK, reinterpret_cast<bf16*>(smem), sums);
+    tc_product<BwdTile>(w_pack + (size_t)j0 * ldp + (size_t)slab * Hp, ldp,
+                        dz_in + (size_t)b0 * ldp + (size_t)slab * Hp, ldp, nb,
+                        0, Hp / kTcK, reinterpret_cast<bf16*>(smem), sums);
     cluster.sync();  // every slab's partial sums are in place
   }
   // This block finishes a quarter of the batch rows for all its units,
@@ -960,8 +1053,8 @@ lstm_bwd_tc_step(const bf16* __restrict__ dz_in,    // (B, 4Hp) dz[t+1]
       dh[e] = 0.0f;
 #pragma unroll
       for (int r = 0; r < kTcCluster; ++r)
-        dh[e] += tc_sum<kTcBwdRows>(cluster.map_shared_rank(sums, r),
-                        bb * BwdTile::kRedLd + p % kTcBwdRows);
+        dh[e] += tc_sum<BwdTile>(cluster.map_shared_rank(sums, r),
+                                 bb * BwdTile::kRedLd + p % kTcBwdRows);
     } else {
       dh[e] = to_f32(dh_init[at]);
     }
@@ -1003,31 +1096,44 @@ lstm_bwd_tc_step(const bf16* __restrict__ dz_in,    // (B, 4Hp) dz[t+1]
   if (product) cluster.sync();  // no block leaves while its sums are read
 }
 
-// K4 in bf16: T launches. h_pad is (2, B, Hp), zero past H, with h0 in
-// h_pad[0]; step t reads h_pad[t % 2] and writes h_pad[(t + 1) % 2]. c
-// ping-pongs between c_T and c_scratch as in run().
-int run_fwd_tc(const bf16* xp, const bf16* w_pack, bf16* h_pad,
-               const bf16* c0, bf16* out, bf16* gates, bf16* c_seq,
-               bf16* h_t, bf16* c_t, bf16* c_scratch, int T_len, int B,
-               int H, int Hp, dim3 grid, cudaStream_t stream) {
+// K1, K2 or K4 in bf16: n_steps launches (K2: t_live). h_pad is (2, B,
+// Hp), zero past H, with h0 in h_pad[0]; step t reads h_pad[t % 2] and
+// writes h_pad[(t + 1) % 2], and the last step also h_T. c ping-pongs
+// between c_T and c_scratch as in run().
+template <class Tl, FwdKind kKind>
+int run_fwd_tc(const bf16* xp, const bf16* w_pack, const int* valid,
+               bf16* h_pad, const bf16* c0, bf16* out, bf16* gates,
+               bf16* c_seq, bf16* h_t, bf16* c_t, bf16* c_scratch,
+               int n_steps, int B, int H, int Hp, dim3 grid,
+               cudaStream_t stream) {
+  const auto step = lstm_fwd_tc_step<Tl, kKind>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_tc_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FwdTile::kSmem);
+      step, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
   if (err != cudaSuccess) return (int)err;
   const size_t BH = (size_t)B * H, BHp = (size_t)B * Hp;
+  constexpr bool kK4 = kKind == FwdKind::kK4;
   auto c_after = [&](int t) {
-    return ((T_len - 1 - t) % 2 == 0) ? c_t : c_scratch;
+    return ((n_steps - 1 - t) % 2 == 0) ? c_t : c_scratch;
   };
-  for (int t = 0; t < T_len; ++t) {
-    lstm_fwd_tc_step<<<grid, FwdTile::kThreads, FwdTile::kSmem, stream>>>(
-        xp + (size_t)t * 4 * BH, w_pack, h_pad + (t % 2) * BHp,
+  for (int t = 0; t < n_steps; ++t) {
+    step<<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
+        xp + (size_t)t * 4 * BH, w_pack, valid, t, h_pad + (t % 2) * BHp,
         t == 0 ? c0 : c_after(t - 1), h_pad + ((t + 1) % 2) * BHp,
-        c_after(t), out + (size_t)t * BH, t == T_len - 1 ? h_t : nullptr,
-        gates + (size_t)t * 4 * BH, c_seq + (size_t)t * BH, B, H, Hp);
+        c_after(t), out + (size_t)t * BH, t == n_steps - 1 ? h_t : nullptr,
+        kK4 ? gates + (size_t)t * 4 * BH : nullptr,
+        kK4 ? c_seq + (size_t)t * BH : nullptr, B, H, Hp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// K1 or K2 in bf16 on the tile of `batch` rows that tc_layout chose.
+template <FwdKind kKind, typename... Args>
+int run_fwd_tc_tile(int batch, Args... args) {
+  if (batch == ServeTile::kBatch) return run_fwd_tc<ServeTile, kKind>(args...);
+  if (batch == FwdTile::kBatch) return run_fwd_tc<FwdTile, kKind>(args...);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5 in bf16: T + 1 launches, as run_bwd. dz_pad is (2, B, 4Hp), zero past
@@ -1061,27 +1167,38 @@ extern "C" {
 
 // The bf16 tile constants that ops/fused_lstm.py lays W_hh out for and
 // builds the grids from (TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K,
-// TC_CLUSTER); it checks them against these when it loads the library.
+// TC_CLUSTER, TC_SERVE_ROWS, TC_SERVE_BATCH); it checks them against these
+// when it loads the library.
 void fused_lstm_tc_config(int* out) {
-  const int c[5] = {kTcFwdRows, kTcBwdRows, kTcBatch, kTcK, kTcCluster};
-  for (int i = 0; i < 5; ++i) out[i] = c[i];
+  const int c[7] = {kTcFwdRows, kTcBwdRows, kTcBatch,     kTcK,
+                    kTcCluster, kTcServeRows, kTcServeBatch};
+  for (int i = 0; i < 7; ++i) out[i] = c[i];
 }
 
-// dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers of that
-// dtype; c_scratch is (B, H). Returns a cudaError_t (0 on success). T = 0 is
-// the caller's to handle.
+// K1. dtype: 0 = float32, 1 = bfloat16; every tensor is a device pointer of
+// that dtype, c_scratch (B, H). f32 runs the CUDA-core template on w_hh and
+// h0. bf16 runs on the tensor cores and takes w_pack, h_pad (2, B, Hp) with
+// h0 in its first half, Hp, the grid and the tile's batch rows, all from
+// ops/fused_lstm.py::tc_layout; it reads neither w_hh nor h0. Returns a
+// cudaError_t (0 on success). T = 0 is the caller's to handle.
 int fused_lstm_forward(int dtype, const void* x_proj, const void* w_hh,
-                       const void* h0, const void* c0, void* out, void* h_t,
-                       void* c_t, void* c_scratch, int T, int B, int H,
-                       void* stream) {
+                       const void* w_pack, const void* h0, void* h_pad,
+                       const void* c0, void* out, void* h_t, void* c_t,
+                       void* c_scratch, int T, int B, int H, int Hp, int gx,
+                       int gy, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float, false>(x_proj, w_hh, h0, c0, out, nullptr, nullptr,
                              h_t, c_t, c_scratch, T, B, H, s);
   if (dtype == 1)
-    return run<__nv_bfloat16, false>(x_proj, w_hh, h0, c0, out, nullptr,
-                                     nullptr, h_t, c_t, c_scratch, T, B, H,
-                                     s);
+    return run_fwd_tc_tile<FwdKind::kK1>(
+        batch, static_cast<const bf16*>(x_proj),
+        static_cast<const bf16*>(w_pack), static_cast<const int*>(nullptr),
+        static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
+        static_cast<bf16*>(out), static_cast<bf16*>(nullptr),
+        static_cast<bf16*>(nullptr), static_cast<bf16*>(h_t),
+        static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch), T, B, H, Hp,
+        dim3(gx, gy), s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1100,13 +1217,13 @@ int fused_lstm_forward_gates(int dtype, const void* x_proj, const void* w_hh,
     return run<float, true>(x_proj, w_hh, h0, c0, out, gates, c_seq, h_t,
                             c_t, c_scratch, T, B, H, s);
   if (dtype == 1)
-    return run_fwd_tc(static_cast<const bf16*>(x_proj),
-                      static_cast<const bf16*>(w_pack),
-                      static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
-                      static_cast<bf16*>(out), static_cast<bf16*>(gates),
-                      static_cast<bf16*>(c_seq), static_cast<bf16*>(h_t),
-                      static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch),
-                      T, B, H, Hp, dim3(gx, gy), s);
+    return run_fwd_tc<FwdTile, FwdKind::kK4>(
+        static_cast<const bf16*>(x_proj), static_cast<const bf16*>(w_pack),
+        nullptr, static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
+        static_cast<bf16*>(out), static_cast<bf16*>(gates),
+        static_cast<bf16*>(c_seq), static_cast<bf16*>(h_t),
+        static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch), T, B, H, Hp,
+        dim3(gx, gy), s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1140,22 +1257,34 @@ int fused_lstm_backward(int dtype, const void* gates, const void* c_seq,
 
 // K2. dtype: 0 = float32, 1 = bfloat16, for x_proj, w_hh, h0, c0, out,
 // h_t, c_t and the (B, H) scratches; valid is (B,) int32. 0 <= t_live <= T
-// and t_live >= max(valid); T = 0 is the caller's to handle.
+// and t_live >= max(valid); T = 0 is the caller's to handle. f32 runs the
+// CUDA-core template; bf16 runs on the tensor cores as K1 does, with
+// w_pack, h_pad, Hp, the grid and the tile's batch rows, and reads neither
+// w_hh nor h_scratch.
 int fused_lstm_forward_ragged(int dtype, const void* x_proj, const void* w_hh,
                               const int* valid, const void* h0,
                               const void* c0, void* out, void* h_t, void* c_t,
-                              void* h_scratch, void* c_scratch, int T,
-                              int t_live, int B, int H, void* stream) {
+                              void* h_scratch, void* c_scratch,
+                              const void* w_pack, void* h_pad, int T,
+                              int t_live, int B, int H, int Hp, int gx, int gy,
+                              int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_ragged<float, float>(x_proj, w_hh, nullptr, valid, h0, c0, out,
                                     h_t, c_t, h_scratch, c_scratch, T, t_live,
                                     B, H, s);
-  if (dtype == 1)
-    return run_ragged<__nv_bfloat16, __nv_bfloat16>(
-        x_proj, w_hh, nullptr, valid, h0, c0, out, h_t, c_t, h_scratch,
-        c_scratch, T, t_live, B, H, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  bool done = false;
+  const cudaError_t err = ragged_prologue<bf16>(
+      out, h0, c0, h_t, c_t, T, t_live, (size_t)B * H, s, &done);
+  if (err != cudaSuccess || done) return (int)err;
+  return run_fwd_tc_tile<FwdKind::kK2>(
+      batch, static_cast<const bf16*>(x_proj),
+      static_cast<const bf16*>(w_pack), valid, static_cast<bf16*>(h_pad),
+      static_cast<const bf16*>(c0), static_cast<bf16*>(out),
+      static_cast<bf16*>(nullptr), static_cast<bf16*>(nullptr),
+      static_cast<bf16*>(h_t), static_cast<bf16*>(c_t),
+      static_cast<bf16*>(c_scratch), t_live, B, H, Hp, dim3(gx, gy), s);
 }
 
 // K3: as K2, with w_hh_q int8 (4H, H) and w_scale f32 (4H,); dtype is the

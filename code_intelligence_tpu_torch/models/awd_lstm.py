@@ -33,6 +33,8 @@ from code_intelligence_tpu_torch.ops.fused_lstm import (
     lstm_layer_fused,
     lstm_layer_fused_ragged,
     lstm_layer_fused_ragged_int8,
+    pack_w_hh_fwd,
+    tc_layout,
 )
 from code_intelligence_tpu_torch.ops.lstm import LSTMState, lstm_layer
 from code_intelligence_tpu_torch.ops.qrnn import qrnn_layer
@@ -192,6 +194,10 @@ class AWDLSTMEncoder(nn.Module):
     Frozen by default. ``trainable=True`` keeps f32 master weights that
     take gradients and are cast to the compute dtype in the forward, as
     the JAX model casts ``w.astype(cfg.dtype)``.
+
+    A frozen bf16 LSTM encoder keeps each layer's ``W_hh`` packed for the
+    tensor-core K1 and K2 (:meth:`w_hh_pack`), built on first use and
+    reused until the weight changes; a trainable one packs per call.
     """
 
     def __init__(self, config: AWDLSTMConfig, device="cpu",
@@ -199,7 +205,9 @@ class AWDLSTMEncoder(nn.Module):
         super().__init__()
         self.config = config
         self.plain = plain
+        self.trainable = trainable
         self.int8 = config.precision == "int8"
+        self._packs = {}  # layer -> (w_hh, its storage and version, packs)
         if trainable and self.int8:
             raise ValueError("precision='int8' is a serve-path mode: "
                              "training runs f32 master weights")
@@ -291,18 +299,44 @@ class AWDLSTMEncoder(nn.Module):
             elif valid_lens is not None:
                 x, st = lstm_layer_fused_ragged(
                     x, states[li], w_ih, w_hh, bias, valid_lens, t_live,
-                    plain=self.plain)
+                    plain=self.plain, w_pack=self.w_hh_pack(li, B))
             else:
                 w_ih, w_hh, bias = (w.to(dtype) for w in (w_ih, w_hh, bias))
-                if f"weight_{li}" in masks:
+                w_pack = self.w_hh_pack(li, B)
+                if f"weight_{li}" in masks:  # DropConnect: not in the pack
                     w_hh = w_hh * _scaled(masks[f"weight_{li}"],
                                           cfg.weight_p, dtype)
-                layer = lstm_layer if self.plain else lstm_layer_fused
-                x, st = layer(x, states[li], w_ih, w_hh, bias)
+                    w_pack = None
+                if self.plain:
+                    x, st = lstm_layer(x, states[li], w_ih, w_hh, bias)
+                else:
+                    x, st = lstm_layer_fused(x, states[li], w_ih, w_hh, bias,
+                                             w_pack=w_pack)
             if f"hidden_{li}" in masks:
                 x = x * _scaled(masks[f"hidden_{li}"], cfg.hidden_p, dtype)
             new_states.append(st)
         return x, tuple(new_states)
+
+    def w_hh_pack(self, li: int, B: int) -> Optional[torch.Tensor]:
+        """LSTM layer ``li``'s ``W_hh`` packed for the bf16 tensor-core
+        K1 and K2 at batch ``B`` (``ops/fused_lstm.py::pack_w_hh_fwd``), or
+        None where a layer takes none (trainable, plain, not bf16). Built
+        on first use and kept while the weight is the same tensor with the
+        same storage and version counter: ``load_state_dict``, any
+        in-place update and a move to another device or dtype each build it
+        anew. (A write through ``.data`` bypasses the version counter.)"""
+        w_hh = getattr(self, f"lstm_{li}_w_hh")
+        if self.trainable or self.plain or w_hh.dtype != torch.bfloat16:
+            return None
+        key = (w_hh.data_ptr(), w_hh.device, w_hh._version)
+        held = self._packs.get(li)
+        if held is None or held[0] is not w_hh or held[1] != key:
+            held = self._packs[li] = (w_hh, key, {})
+        lay = tc_layout(B, w_hh.shape[1])
+        packs = held[2]
+        if lay.rows not in packs:
+            packs[lay.rows] = pack_w_hh_fwd(w_hh.detach(), lay)
+        return packs[lay.rows]
 
     def _qrnn(self, li: int, x: torch.Tensor, state, valid_lens, masks):
         """QRNN layer ``li`` on its input ``x``: ``(out, (h_T, x[:, -1]))``.

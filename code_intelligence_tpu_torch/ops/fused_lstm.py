@@ -23,10 +23,13 @@ The kernels are hand-written CUDA in ``csrc/fused_lstm.cu``; its header
 says what bounds them on an H100 and how they are laid out. The TPU's
 residency gates and tile choice (``fits_resident``,
 ``fits_resident_int8``, ``_pick_tiles*``, sublane padding) are VMEM
-budgets and have no counterpart here: every shape runs its kernel. The
-bf16 K4 and K5 run on the tensor cores and take ``W_hh`` packed once per
-call into a padded copy laid out for them (:func:`tc_layout`,
-:func:`pack_w_hh_fwd`, :func:`pack_w_hh_bwd`).
+budgets and have no counterpart here: every shape runs its kernel. In
+bf16, K1, K2, K4 and K5 run on the tensor cores and take ``W_hh`` in a
+padded copy laid out for them (:func:`tc_layout`, :func:`pack_w_hh_fwd`,
+:func:`pack_w_hh_bwd`): K4 and K5 pack it per call, K1 and K2 take the
+copy a frozen encoder keeps (``w_pack``) or pack per call without one. f32
+K1, K2, K4, K5 and K3 run the CUDA-core kernels: the dtype picks the
+kernel, never the shape.
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches its kernel or raises. The
@@ -81,23 +84,23 @@ backward_launches = LaunchCounter()      # K5
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_lstm_forward.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.fused_lstm_forward.argtypes = [i, *[p] * 10, *[i] * 7, p]
     lib.fused_lstm_forward.restype = i
     lib.fused_lstm_forward_gates.argtypes = [i, *[p] * 12, *[i] * 6, p]
     lib.fused_lstm_forward_gates.restype = i
     lib.fused_lstm_backward.argtypes = [i, *[p] * 11, *[i] * 7, p]
     lib.fused_lstm_backward.restype = i
-    lib.fused_lstm_forward_ragged.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, p]
+    lib.fused_lstm_forward_ragged.argtypes = [i, *[p] * 12, *[i] * 8, p]
     lib.fused_lstm_forward_ragged.restype = i
     lib.fused_lstm_forward_ragged_int8.argtypes = [i, p, p, p, p, p, p, p, p,
                                                    p, p, p, i, i, i, i, p]
     lib.fused_lstm_forward_ragged_int8.restype = i
     lib.fused_lstm_error_string.argtypes = [i]
     lib.fused_lstm_error_string.restype = ctypes.c_char_p
-    built = (i * 5)()
+    built = (i * 7)()
     lib.fused_lstm_tc_config(built)
-    ours = (TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K, TC_CLUSTER)
+    ours = (TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K, TC_CLUSTER,
+            TC_SERVE_ROWS, TC_SERVE_BATCH)
     if tuple(built) != ours:
         raise RuntimeError(f"csrc/fused_lstm.cu's tile constants "
                            f"{tuple(built)} differ from the layout's {ours}")
@@ -170,38 +173,49 @@ def _check_launchable(name: str, tensors) -> None:
         raise ValueError(f"{name} takes tensors aligned to 16 bytes")
 
 
-# The bf16 K4 and K5 blocks (csrc/fused_lstm.cu, kTc*; checked against the
-# library's when it is loaded):
-# TC_FWD_ROWS W_hh rows (K4: TC_FWD_ROWS / 4 hidden units x 4 gates) or
-# TC_BWD_ROWS of its columns (K5) times up to TC_BATCH batch rows, K in
-# slices of TC_K, and K5's 4H sum split over a cluster of 4 blocks.
+# The bf16 tensor-core blocks (csrc/fused_lstm.cu, kTc*; checked against
+# the library's when it is loaded): TC_FWD_ROWS W_hh rows (the forward step:
+# TC_FWD_ROWS / 4 hidden units x 4 gates) or TC_BWD_ROWS of its columns
+# (K5) times up to TC_BATCH batch rows, K in slices of TC_K, and K5's 4H sum
+# split over a cluster of 4 blocks. K1 and K2 at B <= TC_SERVE_BATCH (the
+# serve batch) take the serve tile: TC_SERVE_ROWS W_hh rows times up to
+# TC_SERVE_BATCH batch rows.
 TC_FWD_ROWS, TC_BWD_ROWS, TC_BATCH, TC_K, TC_CLUSTER = 80, 96, 112, 64, 4
+TC_SERVE_ROWS, TC_SERVE_BATCH = 80, 32
 
 
 class TensorCoreLayout(NamedTuple):
-    """Where the bf16 K4 and K5 put ``W_hh`` and their grids, for a batch
-    of ``B`` rows and hidden size ``H``."""
+    """Where the bf16 tensor-core kernels put ``W_hh`` and their grids,
+    for a batch of ``B`` rows and hidden size ``H``."""
     hp: int                         # padded row length, a multiple of TC_K
-    fwd_grid: Tuple[int, int]       # K4: (unit tiles, batch tiles)
+    fwd_grid: Tuple[int, int]       # forward step: (unit tiles, batch tiles)
     bwd_grid: Tuple[int, int, int]  # K5: (gate slabs = cluster, unit tiles,
     #                                      batch tiles)
+    rows: int                       # forward step: W_hh rows a block
+    batch: int                      # forward step: batch rows a block
 
 
-def tc_layout(B: int, H: int) -> TensorCoreLayout:
-    batch_tiles = -(-B // TC_BATCH)
+def tc_layout(B: int, H: int, gates: bool = False) -> TensorCoreLayout:
+    """The layout at batch ``B``: the forward step takes the serve tile
+    at ``B <= TC_SERVE_BATCH`` and the TC_BATCH-row tile above it, or
+    always with ``gates`` (K4)."""
+    rows, batch = ((TC_SERVE_ROWS, TC_SERVE_BATCH)
+                   if B <= TC_SERVE_BATCH and not gates
+                   else (TC_FWD_ROWS, TC_BATCH))
     return TensorCoreLayout(
         hp=-(-H // TC_K) * TC_K,
-        fwd_grid=(-(-H * 4 // TC_FWD_ROWS), batch_tiles),
-        bwd_grid=(TC_CLUSTER, -(-H // TC_BWD_ROWS), batch_tiles))
+        fwd_grid=(-(-H * 4 // rows), -(-B // batch)),
+        bwd_grid=(TC_CLUSTER, -(-H // TC_BWD_ROWS), -(-B // TC_BATCH)),
+        rows=rows, batch=batch)
 
 
 def pack_w_hh_fwd(w_hh: torch.Tensor, layout: TensorCoreLayout
                   ) -> torch.Tensor:
-    """K4's ``W_hh``: ``(fwd_grid[0] * TC_FWD_ROWS, Hp)``, zero past H.
-    With n = TC_FWD_ROWS / 4 units a block, block u's rows are ``W_hh``
+    """The forward step's ``W_hh``: ``(fwd_grid[0] * rows, Hp)``, zero
+    past H. With n = rows / 4 units a block, block u's rows are ``W_hh``
     rows ``g * H + n * u + jj`` in order ``(g, jj)``: all four gates of
     its n units."""
-    H, n = w_hh.shape[1], TC_FWD_ROWS // 4
+    H, n = w_hh.shape[1], layout.rows // 4
     out = w_hh.new_zeros((layout.fwd_grid[0] * n, 4, layout.hp))
     out[:H, :, :H] = w_hh.view(4, H, H).transpose(0, 1)  # [unit][gate][k]
     return out.view(-1, n, 4, layout.hp).transpose(1, 2) \
@@ -219,9 +233,41 @@ def pack_w_hh_bwd(w_hh: torch.Tensor, layout: TensorCoreLayout
     return out.view(-1, 4 * layout.hp)
 
 
+def _check_pack(w_pack: Optional[torch.Tensor], x_proj: torch.Tensor,
+                w_hh: torch.Tensor) -> None:
+    """A caller's ``w_pack`` (K1, K2) is bf16, on ``w_hh``'s device, in
+    the shape :func:`pack_w_hh_fwd` gives for ``tc_layout(B, H)``."""
+    if w_pack is None:
+        return
+    B, H = x_proj.shape[1], w_hh.shape[1]
+    lay = tc_layout(B, H)
+    want = (lay.fwd_grid[0] * lay.rows, lay.hp)
+    if (x_proj.dtype != torch.bfloat16 or w_pack.dtype != torch.bfloat16
+            or tuple(w_pack.shape) != want or w_pack.device != w_hh.device
+            or not w_pack.is_contiguous()):
+        raise ValueError(
+            f"w_pack must be pack_w_hh_fwd(w_hh, tc_layout({B}, {H})) for "
+            f"bf16 inputs: contiguous bf16 {want} on {w_hh.device}, got "
+            f"{w_pack.dtype} {tuple(w_pack.shape)} on {w_pack.device}")
+
+
+def _tc_operands(w_hh: torch.Tensor, h0: torch.Tensor,
+                 layout: TensorCoreLayout, w_pack: Optional[torch.Tensor]):
+    """The tensor-core forward step's ``W_hh`` (``w_pack``, or packed
+    now), its zero-padded ``(2, B, Hp)`` h scratch with ``h0`` in the
+    first half, and the layout's ints for the C entry."""
+    if w_pack is None:
+        w_pack = pack_w_hh_fwd(w_hh, layout)
+    B, H = h0.shape
+    h_pad = h0.new_zeros((2, B, layout.hp))
+    h_pad[0, :, :H] = h0
+    return w_pack, h_pad, [layout.hp, *layout.fwd_grid, layout.batch]
+
+
 def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
                        h0: torch.Tensor, c0: torch.Tensor,
-                       with_gates: bool = False):
+                       with_gates: bool = False,
+                       w_pack: Optional[torch.Tensor] = None):
     """``(x_proj (T, B, 4H), w_hh (4H, H), h0, c0 (B, H))`` ->
     ``(out (T, B, H), (h_T, c_T))``, all in one dtype (f32 or bf16).
 
@@ -229,8 +275,15 @@ def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
     c_T))``: the post-activation gates ``(T, B, 4H)`` in order i, f, g, o
     and the cell state each step read ``(T, B, H)``, in the input dtype.
 
+    ``w_pack`` (bf16 K1 only): ``pack_w_hh_fwd(w_hh, tc_layout(B, H))``,
+    held by the caller across calls (a frozen encoder keeps one); without
+    it a bf16 call packs its own.
+
     CPU tensors run the plain version; CUDA tensors launch K1 or K4."""
     T, B, H = _check(x_proj, w_hh, h0, c0)
+    if with_gates and w_pack is not None:
+        raise ValueError("K4 packs W_hh itself: w_pack is K1's")
+    _check_pack(w_pack, x_proj, w_hh)
     if x_proj.device.type == "cpu":
         return fused_lstm_forward_plain(x_proj, w_hh, h0, c0, with_gates)
     name = "K4" if with_gates else "K1"
@@ -250,21 +303,18 @@ def fused_lstm_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
     else:
         c_scratch = torch.empty((B, H), **kw)
         lib = _build.load("fused_lstm", _bind)
-        if with_gates:
-            w_pack, h_pad, tc = None, None, [0, 0, 0]
-            if x_proj.dtype == torch.bfloat16:  # the tensor-core step
-                lay = tc_layout(B, H)
-                w_pack = pack_w_hh_fwd(w_hh, lay)
-                h_pad = torch.zeros((2, B, lay.hp), **kw)
-                h_pad[0, :, :H] = h0
-                tc = [lay.hp, *lay.fwd_grid]
-            entry, args = lib.fused_lstm_forward_gates, [
+        h_pad, tc = None, [0, 0, 0, 0]
+        if x_proj.dtype == torch.bfloat16:  # the tensor-core step
+            w_pack, h_pad, tc = _tc_operands(
+                w_hh, h0, tc_layout(B, H, gates=with_gates), w_pack)
+        if with_gates:  # K4's tile is fixed: no batch-rows argument
+            entry, args, tc = lib.fused_lstm_forward_gates, [
                 x_proj, w_hh, w_pack, h0, h_pad, c0, out, gates, c_seq,
-                h_t, c_t, c_scratch]
+                h_t, c_t, c_scratch], tc[:3]
         else:
             entry, args = lib.fused_lstm_forward, [
-                x_proj, w_hh, h0, c0, out, h_t, c_t, c_scratch]
-            tc = []
+                x_proj, w_hh, w_pack, h0, h_pad, c0, out, h_t, c_t,
+                c_scratch]
         with torch.cuda.device(x_proj.device):
             err = entry(_DTYPE_CODES[x_proj.dtype], *_ptrs(args), T, B, H,
                         *tc, torch.cuda.current_stream().cuda_stream)
@@ -430,7 +480,8 @@ def fused_lstm_backward_plain(gates: torch.Tensor, c_prev: torch.Tensor,
 def fused_lstm_forward_ragged(x_proj: torch.Tensor, w_hh: torch.Tensor,
                               h0: torch.Tensor, c0: torch.Tensor,
                               valid_lens: torch.Tensor,
-                              t_live: Optional[int] = None
+                              t_live: Optional[int] = None,
+                              w_pack: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, LSTMState]:
     """K2: ``fused_lstm_forward`` plus ``valid_lens (B,) int32``. Row b's
     outputs equal the dense recurrence's for ``t < valid_lens[b]`` and are
@@ -441,14 +492,17 @@ def fused_lstm_forward_ragged(x_proj: torch.Tensor, w_hh: torch.Tensor,
     caller (the scheduler has the lengths in its host staging block): the
     kernel launches only that many steps and zero-fills the rest, without
     reading ``valid_lens`` back. ``None`` launches all T steps, which is
-    exact too. CPU tensors run the plain version; CUDA tensors launch K2."""
+    exact too. ``w_pack`` as for K1. CPU tensors run the plain version;
+    CUDA tensors launch K2."""
     _check(x_proj, w_hh, h0, c0)
     steps = _check_ragged(x_proj, valid_lens, t_live)
+    _check_pack(w_pack, x_proj, w_hh)
     if x_proj.device.type == "cpu":
         return fused_lstm_forward_ragged_plain(x_proj, w_hh, h0, c0,
                                                valid_lens)
     return _launch_ragged("K2", "fused_lstm_forward_ragged", ragged_launches,
-                          x_proj, (w_hh,), h0, c0, valid_lens, steps)
+                          x_proj, (w_hh,), h0, c0, valid_lens, steps,
+                          tensor_core=True, w_pack=w_pack)
 
 
 def fused_lstm_forward_ragged_int8(x_proj: torch.Tensor,
@@ -479,10 +533,15 @@ def fused_lstm_forward_ragged_int8(x_proj: torch.Tensor,
 
 def _launch_ragged(kernel: str, entry: str, counter: LaunchCounter,
                    x_proj: torch.Tensor, weights, h0: torch.Tensor,
-                   c0: torch.Tensor, valid_lens: torch.Tensor, steps: int
+                   c0: torch.Tensor, valid_lens: torch.Tensor, steps: int,
+                   tensor_core: bool = False,
+                   w_pack: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, LSTMState]:
     """Launch K2 or K3 (the C function ``entry``, whose weight arguments
-    are ``weights``) for ``steps`` live steps on the tensors' card."""
+    are ``weights``) for ``steps`` live steps on the tensors' card.
+    ``tensor_core`` (K2): the entry ends with the tensor-core step's
+    operands, which bf16 fills (``w_pack``, or ``W_hh`` packed now) and
+    f32 leaves null and 0."""
     if x_proj.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {x_proj.device}")
     _check_launchable(kernel, (x_proj, *weights, h0, c0, valid_lens))
@@ -493,14 +552,20 @@ def _launch_ragged(kernel: str, entry: str, counter: LaunchCounter,
     h_t, c_t, h_scr, c_scr = (torch.empty((B, H), **kw) for _ in range(4))
     if T == 0:
         return out, (h_t.copy_(h0), c_t.copy_(c0))
+    tail, tc = [], []
+    if tensor_core:
+        tail, tc = [None, None], [0, 0, 0, 0]
+        if x_proj.dtype == torch.bfloat16:
+            w_pack, h_pad, tc = _tc_operands(weights[0], h0, tc_layout(B, H),
+                                             w_pack)
+            tail = [w_pack, h_pad]
     lib = _build.load("fused_lstm", _bind)
     with torch.cuda.device(x_proj.device):
         err = getattr(lib, entry)(
-            _DTYPE_CODES[x_proj.dtype], x_proj.data_ptr(),
-            *(w.data_ptr() for w in weights), valid_lens.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), out.data_ptr(), h_t.data_ptr(),
-            c_t.data_ptr(), h_scr.data_ptr(), c_scr.data_ptr(), T, steps, B,
-            H, torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[x_proj.dtype],
+            *_ptrs([x_proj, *weights, valid_lens, h0, c0, out, h_t, c_t,
+                    h_scr, c_scr, *tail]),
+            T, steps, B, H, *tc, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.fused_lstm_error_string(err).decode()
         raise RuntimeError(f"{kernel} {entry} launch failed: {msg} "
@@ -615,13 +680,15 @@ class _LSTMLayerFused(torch.autograd.Function):
 
 
 def lstm_layer_fused(x: torch.Tensor, state: LSTMState, w_ih: torch.Tensor,
-                     w_hh: torch.Tensor, bias: torch.Tensor
+                     w_hh: torch.Tensor, bias: torch.Tensor,
+                     w_pack: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, LSTMState]:
     """One LSTM layer: ``x (B, T, in)`` -> ``(out (B, T, H), (h_T,
     c_T))``; ``out`` is a batch-major view of the kernel's time-major
     output. When autograd needs a gradient of any input, the forward is
-    K4 and the backward K5; otherwise the forward is K1 and nothing is
-    kept for a backward. DropConnect, if any, is already in ``w_hh``."""
+    K4 and the backward K5; otherwise the forward is K1, on ``w_pack`` when
+    given (see :func:`fused_lstm_forward`), and nothing is kept for a
+    backward. DropConnect, if any, is already in ``w_hh``."""
     dtype = torch.result_type(x, w_ih)
     h0, c0 = (s.to(dtype).contiguous() for s in state)
     if torch.is_grad_enabled() and any(
@@ -629,25 +696,30 @@ def lstm_layer_fused(x: torch.Tensor, state: LSTMState, w_ih: torch.Tensor,
         out, h_t, c_t = _LSTMLayerFused.apply(x, h0, c0, w_ih, w_hh, bias)
         return out.transpose(0, 1), (h_t, c_t)
     x_proj = project_time_major(x, w_ih, bias)
-    out, st = fused_lstm_forward(x_proj, w_hh, h0, c0)
+    out, st = fused_lstm_forward(x_proj, w_hh, h0, c0, w_pack=w_pack)
     return out.transpose(0, 1), st
 
 
 def lstm_layer_fused_ragged(x: torch.Tensor, state: LSTMState,
                             w_ih: torch.Tensor, w_hh: torch.Tensor,
                             bias: torch.Tensor, valid_lens: torch.Tensor,
-                            t_live: Optional[int] = None, plain: bool = False
+                            t_live: Optional[int] = None, plain: bool = False,
+                            w_pack: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, LSTMState]:
     """One LSTM layer through K2 (``plain=True``: its plain version):
     ``x (B, T, in)`` and ``valid_lens (B,) int32`` -> ``(out (B, T, H),
-    (h_T, c_T))``, with zeros past each row's valid length."""
+    (h_T, c_T))``, with zeros past each row's valid length. K2 takes
+    ``w_pack`` as :func:`fused_lstm_forward` does."""
     x_proj = project_time_major(x, w_ih, bias)
     dtype = x_proj.dtype
     h0, c0 = state
-    fwd = fused_lstm_forward_ragged_plain if plain else \
-        fused_lstm_forward_ragged
-    out, st = fwd(x_proj, w_hh, h0.to(dtype).contiguous(),
-                  c0.to(dtype).contiguous(), valid_lens, t_live)
+    h0, c0 = h0.to(dtype).contiguous(), c0.to(dtype).contiguous()
+    if plain:
+        out, st = fused_lstm_forward_ragged_plain(x_proj, w_hh, h0, c0,
+                                                  valid_lens, t_live)
+    else:
+        out, st = fused_lstm_forward_ragged(x_proj, w_hh, h0, c0, valid_lens,
+                                            t_live, w_pack=w_pack)
     return out.transpose(0, 1), st
 
 

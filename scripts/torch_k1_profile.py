@@ -5,9 +5,10 @@
 
 Run from the root of a checkout on a machine with a CUDA card. Times one
 bf16 call of T=64 steps with CUDA events at several widths and batch
-sizes, then traces one flagship call with ``torch.profiler`` to read the
-kernel's own device time, which separates the kernel from host launch
-gaps. Prints one JSON object; imports nothing of JAX.
+sizes, on ``W_hh`` packed beforehand as a served model holds it, then
+traces one flagship call with ``torch.profiler`` to read the kernel's own
+device time (the tensor-core step in bf16), which separates the kernel
+from host launch gaps. Prints one JSON object; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import cuda_ms, k1_inputs  # noqa: E402
+from chip_smoke import cuda_ms, k1_inputs, serve_pack  # noqa: E402
 from code_intelligence_tpu_torch.ops import fused_lstm as K1  # noqa: E402
 
 T = 64  # the slot step's chunk
@@ -39,20 +40,23 @@ def main() -> int:
     out = {"card": card, "T": T, "dtype": "bfloat16", "us_per_step": {}}
     for H, B in ((8, 32), (800, 32), (2500, 32), (2500, 16), (2500, 1)):
         args = k1_inputs(T, B, H, torch.bfloat16)
-        ms = cuda_ms(lambda: K1.fused_lstm_forward(*args), reps=5)
+        pack, _ = serve_pack(args[1], B)
+        ms = cuda_ms(lambda: K1.fused_lstm_forward(*args, w_pack=pack),
+                     reps=5)
         out["us_per_step"][f"H{H}_B{B}"] = ms * 1e3 / T
     args = k1_inputs(T, 32, 2500, torch.bfloat16)
+    pack, _ = serve_pack(args[1], 32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    K1.fused_lstm_forward(*args)
+    K1.fused_lstm_forward(*args, w_pack=pack)
     out["host_enqueue_ms_H2500_B32"] = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        K1.fused_lstm_forward(*args)
+        K1.fused_lstm_forward(*args, w_pack=pack)
         torch.cuda.synchronize()
     for e in prof.key_averages():
-        if "lstm_step" in e.key:
+        if "lstm_step" in e.key or "lstm_fwd_tc_step" in e.key:
             out["profiler_H2500_B32"] = {
                 "kernel": e.key, "count": e.count,
                 "device_us_per_launch": e.device_time_total / e.count}

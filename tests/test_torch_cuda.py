@@ -36,11 +36,18 @@ def _inputs(T, B, H, device, dtype, seed=0):
             for a in arrs]
 
 
+# bf16 K1 and K2 run on the tensor cores: the serve tile at B <= 32 (the
+# slot and ragged steps, B=32), the 112-row tile above (B=33: one tile
+# with 33 live rows; B=104: the validation window); H=8, 37 and 130 pad
+# W_hh's rows to the next multiple of 64
+K1_SHAPES = [(7, 5, 40), (3, 33, 130), (1, 1, 8), (2, 17, 1030), (5, 13, 37),
+             (64, 32, 2500), (64, 32, 800), (67, 104, 2500), (67, 104, 800)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (3, 33, 130), (1, 1, 8),
-                                   (2, 17, 1030)])
+@pytest.mark.parametrize("T,B,H", K1_SHAPES)
 def test_k1_matches_plain(cuda_device, dtype, T, B, H):
     args = _inputs(T, B, H, cuda_device, dtype)
     before = K1.launches.count
@@ -52,6 +59,11 @@ def test_k1_matches_plain(cuda_device, dtype, T, B, H):
         assert got.dtype == dtype
         err = (got.float() - want.float()).abs().max().item()
         assert err <= ATOL[dtype], err
+    if dtype == torch.bfloat16:  # a caller's pack: the same kernel, bitwise
+        pack = K1.pack_w_hh_fwd(args[1], K1.tc_layout(B, H))
+        out2, (h2, c2) = K1.fused_lstm_forward(*args, w_pack=pack)
+        assert all(torch.equal(a, b) for a, b in
+                   ((out2, out), (h2, h), (c2, c)))
 
 
 @pytest.mark.cuda
@@ -88,7 +100,9 @@ def _ragged_args(T, B, H, device, dtype, int8):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("T,B,H", [(7, 5, 40), (3, 33, 130), (1, 1, 8),
-                                   (16, 32, 2500), (16, 32, 800)])
+                                   (16, 32, 2500), (16, 32, 800),
+                                   (5, 13, 37), (16, 104, 2500),
+                                   (16, 104, 800)])
 def test_ragged_kernels_match_plain(cuda_device, kernel, dtype, T, B, H):
     int8 = kernel == "K3"
     fn, plain, counter = (
@@ -113,6 +127,42 @@ def test_ragged_kernels_match_plain(cuda_device, kernel, dtype, T, B, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", [(16, 32, 2500), (16, 104, 800),
+                                   (7, 40, 40)])
+def test_k2_dead_tiles_match_plain(cuda_device, dtype, T, B, H):
+    """Odd n8 batch tiles (8 rows each) are dead from step 0, and even
+    ones after the first die at step T // 2: the bf16 kernel skips the dead
+    tiles' MMAs and still zeroes their outputs and carries their state."""
+    x, w, h, c = _inputs(T, B, H, cuda_device, dtype)
+
+    def length(b):
+        tile, row = divmod(b, 8)
+        if tile % 2 or row > 2:
+            return 0
+        return (1, T // 2, T if tile == 0 else T // 2)[row]
+
+    lens = [length(b) for b in range(B)]
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = K1.ragged_launches.count
+    out, (hT, cT) = K1.fused_lstm_forward_ragged(x, w, h, c, valid,
+                                                 t_live=max(lens))
+    torch.cuda.synchronize()
+    assert K1.ragged_launches.count == before + max(lens)
+    ref_out, (ref_h, ref_c) = K1.fused_lstm_forward_ragged_plain(
+        x, w, h, c, valid)
+    dead = torch.arange(T, device=cuda_device)[:, None] >= valid[None, :]
+    assert torch.all(out[dead] == 0)
+    never = valid == 0  # rows never live keep h0 and c0 exactly
+    assert torch.equal(hT[never], h[never]) and torch.equal(cT[never],
+                                                            c[never])
+    for got, want in ((out, ref_out), (hT, ref_h), (cT, ref_c)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], err
+
+
+@pytest.mark.cuda
 def test_ragged_kernel_dead_steps_and_raises(cuda_device):
     x, w, h, c = _inputs(4, 3, 8, cuda_device, torch.float32)
     valid = torch.zeros((3,), dtype=torch.int32, device=cuda_device)
@@ -125,19 +175,31 @@ def test_ragged_kernel_dead_steps_and_raises(cuda_device):
         K1.fused_lstm_forward_ragged(x, w, h, c, valid.cpu())
 
 
+# A served bf16 embedding against the plain engine's, as a share of the
+# plain engine's largest value (chip_smoke.py's EMBED_REL): the carries'
+# bf16 rounding differences, through the layers and the pooling, come to
+# about one bf16 step (2^-8) of it.
+EMBED_REL = 2.0 ** -5
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheduler,precision",
-                         [("ragged", "f32"), ("ragged", "int8"),
-                          ("slots", "int8"), ("groups", "int8")])
+@pytest.mark.parametrize("scheduler,precision,dtype", [
+    pytest.param("ragged", "f32", "float32", id="ragged-f32"),
+    pytest.param("ragged", "int8", "float32", id="ragged-int8"),
+    pytest.param("slots", "int8", "float32", id="slots-int8"),
+    pytest.param("groups", "int8", "float32", id="groups-int8"),
+    pytest.param("slots", "f32", "bfloat16", id="slots-bf16"),
+    pytest.param("ragged", "f32", "bfloat16", id="ragged-bf16")])
 def test_engines_match_plain_engine(cuda_device, tmp_path, scheduler,
-                                    precision):
+                                    precision, dtype):
     from code_intelligence_tpu_torch.inference.engine import InferenceEngine
     from code_intelligence_tpu_torch.models import (
         AWDLSTMConfig, random_encoder_arrays)
     from code_intelligence_tpu_torch.text import SPECIALS, Vocab
     from code_intelligence_tpu_torch.training.checkpoint import export_encoder
 
-    cfg = AWDLSTMConfig(vocab_size=200, emb_sz=16, n_hid=40, n_layers=3)
+    cfg = AWDLSTMConfig(vocab_size=200, emb_sz=16, n_hid=40, n_layers=3,
+                        dtype=dtype)
     export_encoder(tmp_path, random_encoder_arrays(cfg, seed=1), cfg,
                    Vocab(SPECIALS + [f"w{i}" for i in range(190)]))
     rng = np.random.RandomState(0)
@@ -149,7 +211,8 @@ def test_engines_match_plain_engine(cuda_device, tmp_path, scheduler,
         seqs, scheduler=scheduler)
     want = InferenceEngine.from_export(tmp_path, plain=True, **kw) \
         .embed_ids_batch(seqs, scheduler=scheduler)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    atol = 1e-4 if dtype == "float32" else EMBED_REL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
 
 
 # K5 in bf16: dz is rounded to bf16 every step and feeds the next step's

@@ -21,6 +21,8 @@ from code_intelligence_tpu_torch.models import (
     random_encoder_arrays,
 )
 from code_intelligence_tpu_torch.inference.engine import InferenceEngine
+from code_intelligence_tpu_torch.models import awd_lstm
+from code_intelligence_tpu_torch.ops.fused_lstm import tc_layout
 from code_intelligence_tpu_torch.text import Vocab
 from code_intelligence_tpu_torch.training.checkpoint import (
     export_encoder,
@@ -130,3 +132,58 @@ def test_port_written_export_loads_in_jax(tmp_path):
     got = InferenceEngine.from_export(tmp_path, buckets=(8, 16), batch_size=2,
                                       device="cpu").embed_issues(issues)
     np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+
+
+def test_frozen_bf16_encoder_packs_w_hh_once_per_weight_version(monkeypatch):
+    """A frozen bf16 encoder packs each layer's W_hh for the tensor-core
+    K1/K2 on first use, reuses it across forwards (dense and ragged), and
+    packs anew after load_state_dict and after an in-place update."""
+    cfg = AWDLSTMConfig(n_layers=2, dtype="bfloat16", **TINY)
+    enc = AWDLSTMEncoder(cfg)
+    enc.load_state_dict(params_from_numpy(random_encoder_arrays(cfg, 0)))
+    built = []
+    pack = awd_lstm.pack_w_hh_fwd
+    monkeypatch.setattr(awd_lstm, "pack_w_hh_fwd",
+                        lambda w, lay: built.append(w) or pack(w, lay))
+    B, T = 3, 6
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 200, (B, T), np.int32))
+    valid = torch.tensor([6, 2, 0], dtype=torch.int32)
+
+    def run():
+        with torch.inference_mode():
+            enc(tokens, init_lstm_states(cfg, B))
+            enc(tokens, init_lstm_states(cfg, B), valid_lens=valid, t_live=6)
+
+    def held(li):
+        w = getattr(enc, f"lstm_{li}_w_hh")
+        want = pack(w.detach(), tc_layout(B, w.shape[1]))
+        got = enc.w_hh_pack(li, B)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        return got
+
+    run()
+    run()
+    assert len(built) == cfg.n_layers  # once a layer, not once a call
+    first = [held(li) for li in range(cfg.n_layers)]
+    enc.load_state_dict(params_from_numpy(random_encoder_arrays(cfg, 1)))
+    run()
+    assert len(built) == 2 * cfg.n_layers
+    second = [held(li) for li in range(cfg.n_layers)]
+    assert not any(torch.equal(a, b) for a, b in zip(first, second))
+    with torch.no_grad():
+        enc.lstm_1_w_hh.mul_(0.5)
+    run()
+    assert len(built) == 2 * cfg.n_layers + 1  # layer 1 only
+    assert held(0) is second[0] and not torch.equal(held(1), second[1])
+
+
+def test_encoder_keeps_no_pack_where_no_kernel_takes_one():
+    """f32 weights, a trainable encoder and the plain path take no pack:
+    K1/K2 in f32 run the CUDA-core kernels, training packs per call."""
+    bf16 = AWDLSTMConfig(n_layers=2, dtype="bfloat16", **TINY)
+    for cfg, kw in ((AWDLSTMConfig(n_layers=2, **TINY), {}),
+                    (bf16, {"trainable": True}), (bf16, {"plain": True})):
+        enc = AWDLSTMEncoder(cfg, **kw)
+        assert all(enc.w_hh_pack(li, 4) is None
+                   for li in range(cfg.n_layers))

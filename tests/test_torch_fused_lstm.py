@@ -105,3 +105,31 @@ def test_zero_steps_returns_the_carry():
     out, (hT, cT) = K1.fused_lstm_forward(x, w, h, c)
     assert out.shape == (0, 2, 4)
     assert torch.equal(hT, h) and torch.equal(cT, c)
+
+
+def test_wrapper_checks_a_callers_w_hh_pack():
+    """K1 and K2 take W_hh already packed for the bf16 tensor-core step; a
+    pack of another shape or type, or one handed to f32 or K4, is refused.
+    On the CPU the plain version runs and the pack changes nothing."""
+    x, w, h, c = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in k1_inputs(3, 2, 4))
+    pack = K1.pack_w_hh_fwd(w, K1.tc_layout(2, 4))
+    valid = torch.tensor([3, 1], dtype=torch.int32)
+    got = K1.fused_lstm_forward(x, w, h, c, w_pack=pack)
+    want = K1.fused_lstm_forward(x, w, h, c)
+    assert all(torch.equal(a, b) for a, b in
+               zip((got[0], *got[1]), (want[0], *want[1])))
+    got = K1.fused_lstm_forward_ragged(x, w, h, c, valid, w_pack=pack)
+    want = K1.fused_lstm_forward_ragged(x, w, h, c, valid)
+    assert all(torch.equal(a, b) for a, b in
+               zip((got[0], *got[1]), (want[0], *want[1])))
+    for bad in (pack[:-1], pack.float(), pack[:, :32]):
+        with pytest.raises(ValueError, match="w_pack"):
+            K1.fused_lstm_forward(x, w, h, c, w_pack=bad)
+        with pytest.raises(ValueError, match="w_pack"):
+            K1.fused_lstm_forward_ragged(x, w, h, c, valid, w_pack=bad)
+    with pytest.raises(ValueError, match="w_pack"):
+        K1.fused_lstm_forward(*(a.float() for a in (x, w, h, c)),
+                              w_pack=pack)
+    with pytest.raises(ValueError, match="K4"):
+        K1.fused_lstm_forward(x, w, h, c, with_gates=True, w_pack=pack)

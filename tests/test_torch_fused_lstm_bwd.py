@@ -127,29 +127,43 @@ def test_k5_wrapper_checks():
         K.fused_lstm_backward(*(a.half() for a in (g, c, d, w, dh, dc)))
 
 
-# the bf16 K4 and K5 on the card read W_hh packed by these helpers; their
-# blocks: K4 20 hidden units (80 W_hh rows), K5 96 units x 4 gate slabs,
-# so at H=2500 both grids fit the H100's 132 SMs, a block each
-@pytest.mark.parametrize("H,fwd_grid,bwd_grid", [
-    (40, (2, 1), (4, 1, 1)), (800, (40, 1), (4, 9, 1)),
-    (2500, (125, 1), (4, 27, 1))])
-def test_tensor_core_layout_packs_w_hh(H, fwd_grid, bwd_grid):
-    lay = K.tc_layout(104, H)
+# the bf16 tensor-core kernels on the card read W_hh packed by these
+# helpers; their blocks: the forward step 20 hidden units (80 W_hh rows) x
+# 112 batch rows (K4 always; K1 and K2 above 32 rows) or the serve tile
+# (TC_SERVE_ROWS x 32 rows, K1 and K2 at B <= 32), K5 96 units x 4 gate
+# slabs, so at H=2500 the grids fit the H100's 132 SMs, a block each
+@pytest.mark.parametrize("B,H,gates,fwd_grid,bwd_grid", [
+    pytest.param(104, 40, False, (2, 1), (4, 1, 1),
+                 id="40-fwd_grid0-bwd_grid0"),
+    pytest.param(104, 800, False, (40, 1), (4, 9, 1),
+                 id="800-fwd_grid1-bwd_grid1"),
+    pytest.param(104, 2500, False, (125, 1), (4, 27, 1),
+                 id="2500-fwd_grid2-bwd_grid2"),
+    pytest.param(32, 2500, False, (125, 1), (4, 27, 1), id="serve-B32-H2500"),
+    pytest.param(32, 800, False, (40, 1), (4, 9, 1), id="serve-B32-H800"),
+    pytest.param(5, 37, False, (2, 1), (4, 1, 1), id="serve-B5-H37"),
+    pytest.param(33, 800, False, (40, 1), (4, 9, 1), id="B33-H800"),
+    pytest.param(8, 2500, True, (125, 1), (4, 27, 1), id="k4-B8-H2500")])
+def test_tensor_core_layout_packs_w_hh(B, H, gates, fwd_grid, bwd_grid):
+    lay = K.tc_layout(B, H, gates=gates)
     assert lay.hp % 64 == 0 and H <= lay.hp < H + 64
     # K5's clusters are the 4 gate slabs, along the grid's x
     assert (lay.fwd_grid, lay.bwd_grid) == (fwd_grid, bwd_grid)
+    serve = B <= K.TC_SERVE_BATCH and not gates
+    assert (lay.rows, lay.batch) == ((K.TC_SERVE_ROWS, 32) if serve
+                                     else (K.TC_FWD_ROWS, 112))
     assert K.tc_layout(113, H).fwd_grid[1] == 2  # 112 batch rows a block
     rng = np.random.default_rng(H)
     w = torch.from_numpy(rng.standard_normal((4 * H, H), dtype=np.float32)
                          ).to(torch.bfloat16)
     fwd, bwd = K.pack_w_hh_fwd(w, lay), K.pack_w_hh_bwd(w, lay)
     assert fwd.dtype == bwd.dtype == torch.bfloat16
-    rows, units = K.TC_FWD_ROWS, K.TC_FWD_ROWS // 4
+    rows, units = lay.rows, lay.rows // 4
     assert fwd.shape == (fwd_grid[0] * rows, lay.hp)
     assert bwd.shape == (bwd_grid[1] * K.TC_BWD_ROWS, 4 * lay.hp)
     # W_hh once, zeros elsewhere
     assert fwd.count_nonzero() == bwd.count_nonzero() == w.count_nonzero()
-    # K4: row rows*u + units*g + jj is W_hh row g*H + units*u + jj
+    # forward: row rows*u + units*g + jj is W_hh row g*H + units*u + jj
     r = torch.arange(fwd.shape[0])
     unit, gate = units * (r // rows) + r % units, (r % rows) // units
     live = unit < H
