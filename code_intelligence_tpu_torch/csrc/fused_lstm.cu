@@ -23,9 +23,9 @@
 // those rounded values. In f32 it is the kGates instantiation of K1's
 // template.
 //
-// In bf16, K1, K2 and K4 are one tensor-core step (lstm_fwd_tc_step, at the
-// end of the file) with three epilogues; the CUDA-core template below
-// serves f32 K1, K2 and K4, and K3 in both activation types.
+// In bf16, K1, K2, K3 and K4 are one tensor-core step (lstm_fwd_tc_step,
+// at the end of the file) with four epilogues; the CUDA-core template
+// below serves them in f32.
 //
 // K2 replaces fused_lstm_forward_ragged (body _ragged_kernel): K1 plus
 // valid_lens (B,) int32 on the device. Row b is live at step t while
@@ -39,9 +39,10 @@
 //
 // K3 replaces fused_lstm_forward_ragged_int8 (body _ragged_kernel_int8): K2
 // with W_hh as int8 codes (4H, H) and an f32 scale per output row (4H,).
-// The codes are widened to f32 in registers, sum(h[k] * q[j, k]) is taken
-// in f32, and the row's scale multiplies that sum before x_proj is added,
-// as the TPU kernel does; no dequantized W_hh exists anywhere.
+// The codes are widened in registers (to f32 on the CUDA cores, to bf16,
+// exactly, for the tensor cores), sum(h[k] * q[j, k]) is taken in f32, and
+// the row's scale multiplies that sum before x_proj is added, as the TPU
+// kernel does; no dequantized W_hh exists anywhere.
 //
 // What bounds them on an H100: every step needs all of W_hh (4H*H elements:
 // 50 MB in bf16, 100 MB in f32 and 25 MB in int8 at H=2500) against the
@@ -78,9 +79,8 @@
 //    vector load is 4 codes (one char4).
 //  * Batch tiles are the fastest-varying block index, so the blocks that
 //    read the same W_hh rows run together and the second read hits L2.
-//  Of these, the f32 K1, K2, K4 and K5 and both K3s do their product on the
-//  CUDA cores; the bf16 K1, K2, K4 and K5 do it on the tensor cores (end
-//  of the file).
+//  These serve f32 activations; in bf16, K1-K5 do their product on the
+//  tensor cores (end of the file).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -118,18 +118,11 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Four consecutive elements as f32, in one 4-byte (int8), 8-byte (bf16) or
-// 16-byte (f32) load; p is 4-element aligned.
+// Four consecutive elements as f32, in one 4-byte (int8) or 16-byte (f32)
+// load; p is 4-element aligned.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);  // little-endian pairs
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 __device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
   const char4 q = *reinterpret_cast<const char4*>(p);
@@ -216,8 +209,9 @@ __device__ __forceinline__ void halve_rows(float (&acc)[4][kBatchTile],
 // shared-memory reads of a row are 512 contiguous bytes (no bank conflicts)
 // and its 8 W_hh loads per pass cover 2 KB. Otherwise one column per load.
 // kChunk is a multiple of 256, so a pass never straddles two chunks.
-// T is the activation type, W the weight type (T for K1 and K2, int8_t for
-// K3). kRagged (K2, K3) adds the per-row freeze at step t and the h carry.
+// T is the activation type (f32), W the weight type (T for K1 and K2,
+// int8_t for K3). kRagged (K2, K3) adds the per-row freeze at step t and
+// the h carry.
 template <typename T, typename W, bool kVec, bool kRagged, bool kGates>
 __global__ void __launch_bounds__(kThreads)
 lstm_step(const T* __restrict__ x_proj,   // (B, 4H), this step
@@ -426,7 +420,7 @@ cudaError_t ragged_prologue(void* out, const void* h0, const void* c0,
   return err;
 }
 
-// K2 in f32 (W = T) and K3 (W = int8_t): t_live launches.
+// K2 (W = T) and K3 (W = int8_t) in f32: t_live launches.
 template <typename T, typename W>
 int run_ragged(const void* x_proj, const void* w_hh, const float* w_scale,
                const int* valid, const void* h0, const void* c0, void* out,
@@ -616,7 +610,7 @@ int run_bwd(const void* gates, const void* c_seq, const void* d_out,
 }
 
 // ---------------------------------------------------------------------------
-// K1, K2, K4 and K5 in bf16 on the tensor cores.
+// K1-K5 in bf16 on the tensor cores.
 //
 // What bounded the CUDA-core versions above at the training shape (T=67,
 // B=104, H=2500): each step's product, 2*B*4H*H = 5.2 GFLOP, ran as f32
@@ -666,7 +660,7 @@ int run_bwd(const void* gates, const void* c_seq, const void* d_out,
 // packed contiguously, so the tile holds all four gates of its units and
 // the cell update needs no second pass. K is H: ceil(4H/kRows) blocks (125
 // at H=2500, 40 at H=800, with 80 rows). Its epilogue makes it one of
-// three kernels (FwdKind):
+// four kernels (FwdKind):
 //  * K4 stores out[t], h into the next scratch, c, and the residuals,
 //    rounded where the CUDA-core K4 rounds them;
 //  * K1 stores out[t], h and c only;
@@ -676,9 +670,25 @@ int run_bwd(const void* gates, const void* c_seq, const void* d_out,
 //    staged, and a block with no live row skips its product, W_hh
 //    included: the counterpart of the TPU kernel's exhausted-tile skip.
 //    The host launches only t_live steps, as for the CUDA-core K2.
-// K4 always takes the 112-row tile above. K1 and K2 take it above
+//  * K3 is K2 on int8 codes: the f32 sum of W_hh row r is scaled by
+//    scale[r] before x_proj is added. Its weight operand is a Tile
+//    parameter (kQCopy), so no other kernel runs any of what follows. The
+//    codes are read where they lie in the row-major (4H, H) W_hh, in the
+//    pack's row order, with no padded copy. A row of H=2500 starts 4, 8
+//    or 12 bytes past a 16-byte boundary, so for even H a stage copies the
+//    five aligned 16-byte chunks around each row's 64 columns by cp.async
+//    (four where the row is aligned, as every row is at H=800) and the
+//    fragment reads skip the row's offset; 4-byte copies, measured first,
+//    took 1.7x as long at H=2500 (PERF.md). Odd H takes ordinary loads. Both
+//    zero-fill past H (the host picks the way from H). A stage of codes is
+//    under half a bf16 stage's bytes; the ring keeps K2's depth. Each warp
+//    widens its A fragment's codes to bf16 in registers between the 2-byte
+//    shared reads and the MMA: every code in [-127, 127] is a bf16
+//    integer, so the product is the TPU kernel's (h in bf16 times the
+//    codes, f32 sums) up to the order of the sum. h is not quantized.
+// K4 always takes the 112-row tile above. K1, K2 and K3 take it above
 // kTcServeBatch batch rows (the B=104 validation window) and the serve
-// tile (ServeTile) at or below: 32 batch rows, serving's batch
+// tile (kTcServe*) at or below: 32 batch rows, serving's batch
 // (inference/engine.py), so its ring stages, accumulators and epilogue are
 // sized for 4 n8 tiles and not 14.
 //
@@ -700,10 +710,14 @@ constexpr int kTcK = 64;         // K per pipeline stage
 constexpr int kTcStages = 6;
 constexpr int kTcKSplit = 2;     // warps splitting a stage's k16 steps
 constexpr int kTcLd = kTcK + 8;  // shared row stride, bf16 elements
+// K3's shared row stride of int8 codes, in bytes: five 16-byte chunks, and
+// the 8 rows of an A fragment's 2-byte reads, 20 words apart, hit
+// distinct banks (the rows' shifts make some of them share one)
+constexpr int kTcQLd = kTcK + 16;
 constexpr int kTcCluster = 4;    // K5: one block per gate slab
 constexpr int kTcFwdRows = 80;   // K4: 20 hidden units x 4 gates
 constexpr int kTcBwdRows = 96;   // K5: hidden units
-// K1 and K2 at B <= kTcServeBatch
+// K1, K2 and K3 at B <= kTcServeBatch
 constexpr int kTcServeBatch = 32;  // 4 n8 tiles
 constexpr int kTcServeRows = 80;   // W_hh rows: 20 hidden units x 4 gates
 constexpr int kTcServeStages = 6;
@@ -712,11 +726,18 @@ constexpr int kTcServeKSplit = 2;
 // A block's tile: kRows rows (the forward step: W_hh rows, K5: its
 // columns) times up to kBatch batch rows, K in kStages-deep slices of
 // kTcK; a warp per 16-row slice and share (one of kKSplit) of the k16
-// steps.
-template <int kRows_, int kBatch_, int kStages_, int kKSplit_>
+// steps. kQCopy (K3 only): the weight rows are int8 codes, copied in
+// aligned 16-byte chunks (kQCopy 16, even H) or a byte at a time by
+// ordinary loads (1, odd H); 0: a bf16 pack.
+template <int kRows_, int kBatch_, int kStages_, int kKSplit_,
+          int kQCopy_ = 0>
 struct Tile {
   static constexpr int kRows = kRows_, kBatch = kBatch_;
   static constexpr int kStages = kStages_, kKSplit = kKSplit_;
+  static constexpr int kQCopy = kQCopy_;
+  using Weight = typename std::conditional<kQCopy != 0, int8_t, bf16>::type;
+  static_assert(kQCopy == 0 || kQCopy == 1 || kQCopy == 16,
+                "16-byte cp.async chunks, or ordinary loads");
   static_assert(kRows % 16 == 0, "16-row warp slices");
   static_assert(kBatch % 16 == 0 && kBatch <= 128,
                 "pairs of n8 tiles, a bit each in a 16-bit mask");
@@ -724,25 +745,33 @@ struct Tile {
   static constexpr int kThreads = kRows / 16 * kKSplit * 32;
   static constexpr int kRedLd = kRows + 4;  // f32 stride of sums [batch][row]
   static constexpr int kSumElems = kBatch * kRedLd;  // one K split's sums
-  static constexpr int kStageElems = (kRows + kBatch) * kTcLd;
+  // a stage, in bf16 elements: the weight rows (K3: kTcQLd bytes each),
+  // then the batch rows
+  static constexpr int kAElems = kRows * (kQCopy ? kTcQLd / 2 : kTcLd);
+  static constexpr int kStageElems = kAElems + kBatch * kTcLd;
   static constexpr int kSmem = kStages * kStageElems * (int)sizeof(bf16);
   static_assert(kKSplit * kSumElems * 4 <= kSmem, "the sums reuse the ring");
 };
 using FwdTile = Tile<kTcFwdRows, kTcBatch, kTcStages, kTcKSplit>;
 using BwdTile = Tile<kTcBwdRows, kTcBatch, kTcStages, kTcKSplit>;
-using ServeTile =
-    Tile<kTcServeRows, kTcServeBatch, kTcServeStages, kTcServeKSplit>;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes global -> shared: the first n (<= 16) bytes of src, zero past
+// them (with n = 0, src is not read)
+__device__ __forceinline__ void cp_async16_n(unsigned dst, const void* src,
+                                             int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
 // 16 bytes global -> shared; zero-filled when !live (src is then not read)
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
+  cp_async16_n(dst, src, live ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -770,22 +799,80 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two int8 codes from shared memory (the lower column in the low byte) as a
+// bf16 pair, exactly: a code c becomes the f32 2^23 + 128 + c by its bits,
+// less 2^23 + 128, and an integer of 8 bits' magnitude is the upper half
+// of its f32.
+__device__ __forceinline__ unsigned widen2(const unsigned char* p) {
+  const unsigned v = *reinterpret_cast<const unsigned short*>(p) ^ 0x8080u;
+  const float lo = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440));
+  const float hi = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7441));
+  return __byte_perm(__float_as_uint(lo - 8388736.0f),
+                     __float_as_uint(hi - 8388736.0f), 0x7632);
+}
+
+// K3 reads W_hh where it lies: the row-major (4H, H) int8 codes (lda = H).
+// Tile row r = g * n + jj (n = kRows / 4 units) is W_hh row g * H + u0 +
+// jj, and `a` points at row u0.
+template <class Tl>
+__device__ __forceinline__ const int8_t* code_row(const int8_t* a,
+                                                  size_t lda, int r) {
+  constexpr int kN = Tl::kRows / 4;
+  return a + ((r / kN) * lda + r % kN) * lda;
+}
+
+// Where column k0 + k of a row lands in its shared row: at k plus the row's
+// offset from a 16-byte boundary, which the chunks copy along (1: ordinary
+// loads land it at k).
+template <class Tl>
+__device__ __forceinline__ int code_shift(const int8_t* row) {
+  return Tl::kQCopy == 16 ? (int)(reinterpret_cast<uintptr_t>(row) & 15) : 0;
+}
+
+// The codes of the stage at K offset k0: per row, the aligned 16-byte
+// chunks that hold its columns k0 .. k0 + 63 (five, or four for a row on
+// a boundary), or those 64 bytes one at a time. Rows with jj >= q_units
+// and columns past H are zero-filled; a chunk reads no byte past its row.
+template <class Tl>
+__device__ __forceinline__ void stage_codes(unsigned char* sa,
+                                            const int8_t* __restrict__ a,
+                                            size_t lda, int q_units, int k0) {
+  constexpr int kN = Tl::kRows / 4;
+  constexpr int kChunks = Tl::kQCopy == 16 ? kTcK / 16 + 1 : kTcK;
+  const int H = (int)lda;
+  for (int i = threadIdx.x; i < Tl::kRows * kChunks; i += Tl::kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool on = r % kN < q_units;
+    const int8_t* row = code_row<Tl>(a, lda, r);
+    if constexpr (Tl::kQCopy == 16) {
+      const int o = code_shift<Tl>(row);
+      const int k = k0 - o + 16 * c;  // the chunk's first column
+      const int n = on && (o != 0 || c < kChunks - 1)
+                        ? min(max(H - k, 0), 16) : 0;
+      cp_async16_n(smem_addr(sa + r * kTcQLd + 16 * c), n ? row + k : a, n);
+    } else {
+      sa[r * kTcQLd + c] =
+          on && k0 + c < H ? static_cast<unsigned char>(row[k0 + c]) : 0;
+    }
+  }
+}
+
 // sums[n][m] = sum over k < n_k * kTcK of a[m][k] * b[n][k], for the tile's
-// kRows rows m of a (row stride lda) and the nb rows n of b (row stride
-// ldb), written to `sums` (stride kRedLd, aliasing `ring`) as kKSplit
-// partial sums kSumElems apart (tc_sum adds them). Both n8 tiles of every
+// kRows rows m of a (row stride lda; K3: the codes, see stage_codes) and
+// the nb rows n of b (row stride ldb), written to `sums` (stride kRedLd,
+// aliasing `ring`) as kKSplit partial sums kSumElems apart (tc_sum adds
+// them). Both n8 tiles of every
 // pair that holds a row are computed (rows past nb are zero-filled). With
-// kMask (K2) only the n8 tiles marked in `live` are (bit i: rows 8i ..
+// kMask (K2, K3) only the n8 tiles marked in `live` are (bit i: rows 8i ..
 // 8i+7): an unmarked tile gets no MMAs and no sums, a pair of them is not
 // staged, and with no tile marked nothing is read at all. Called by every
 // thread of the block with the same `live`; ends with the sums visible to
 // the block.
 template <class Tl, bool kMask = false>
-__device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
-                                           size_t lda,
-                                           const bf16* __restrict__ b,
-                                           size_t ldb, int nb, unsigned live,
-                                           int n_k, bf16* ring, float* sums) {
+__device__ __forceinline__ void tc_product(
+    const typename Tl::Weight* __restrict__ a, size_t lda,
+    const bf16* __restrict__ b, size_t ldb, int nb, unsigned live, int n_k,
+    bf16* ring, float* sums, int q_units = 0) {
   if (kMask && live == 0) return;
   constexpr int kRows = Tl::kRows, kPairs = Tl::kBatch / 16;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -795,18 +882,29 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
   // pairs of n8 tiles staged: those that hold rows, or up to the last
   // marked tile
   const int n_pairs = kMask ? (33 - __clz(live)) / 2 : (nb + 15) / 16;
+  int o_lo = 0, o_hi = 0;  // K3: the shifts of the warp's rows g, g + 8
+  if constexpr (Tl::kQCopy != 0) {
+    const int g = warp * 16 + (lane >> 2);
+    o_lo = code_shift<Tl>(code_row<Tl>(a, lda, g));
+    o_hi = code_shift<Tl>(code_row<Tl>(a, lda, g + 8)) + 8 * kTcQLd;
+  }
   auto tile_on = [&](int nt) { return !kMask || ((live >> nt) & 1u); };
   auto pair_on = [&](int p) {  // the same for the whole block
     return kMask ? ((live >> (2 * p)) & 3u) != 0 : p < n_pairs;
   };
   auto load = [&](int slot, int kt) {
     bf16* sa = ring + slot * Tl::kStageElems;
-    bf16* sb = sa + kRows * kTcLd;
+    bf16* sb = sa + Tl::kAElems;
     const int k0 = kt * kTcK;
-    constexpr int kChunks = kTcK / 8;  // 16-byte chunks per row
-    for (int i = tid; i < kRows * kChunks; i += Tl::kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      cp_async16(smem_addr(sa + r * kTcLd + c), a + r * lda + k0 + c, true);
+    constexpr int kChunks = kTcK / 8;  // 16-byte chunks per bf16 row
+    if constexpr (Tl::kQCopy != 0) {
+      stage_codes<Tl>(reinterpret_cast<unsigned char*>(sa), a, lda, q_units,
+                      k0);
+    } else {
+      for (int i = tid; i < kRows * kChunks; i += Tl::kThreads) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        cp_async16(smem_addr(sa + r * kTcLd + c), a + r * lda + k0 + c, true);
+      }
     }
     for (int i = tid; i < n_pairs * 16 * kChunks; i += Tl::kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 8;
@@ -832,7 +930,7 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
     if (next < n_k) load(next % Tl::kStages, next);
     cp_async_commit();
     const bf16* sa = ring + (kt % Tl::kStages) * Tl::kStageElems;
-    const bf16* sb = sa + kRows * kTcLd;
+    const bf16* sb = sa + Tl::kAElems;
     // Fragments of k16 step kk: a (rows warp*16 .. +15) and, for each pair
     // p of n8 tiles, b0 and b1 of tiles 2p and 2p + 1. The asm statements
     // keep their order, so step kk + 1's loads are written before step
@@ -840,9 +938,19 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
     unsigned af[2][4], bfr[2][kPairs][4];
     auto load_frags = [&](int kk, unsigned (&fa)[4],
                           unsigned (&fb)[kPairs][4]) {
-      ldmatrix_x4(smem_addr(sa + (warp * 16 + (lane & 15)) * kTcLd +
-                            kk * 16 + (lane >> 4) * 8),
-                  fa);
+      if constexpr (Tl::kQCopy != 0) {  // rows g, g + 8; columns 2t, 2t + 8
+        const unsigned char* q = reinterpret_cast<const unsigned char*>(sa) +
+                                 (warp * 16 + (lane >> 2)) * kTcQLd +
+                                 kk * 16 + 2 * (lane & 3);
+        fa[0] = widen2(q + o_lo);
+        fa[1] = widen2(q + o_hi);
+        fa[2] = widen2(q + o_lo + 8);
+        fa[3] = widen2(q + o_hi + 8);
+      } else {
+        ldmatrix_x4(smem_addr(sa + (warp * 16 + (lane & 15)) * kTcLd +
+                              kk * 16 + (lane >> 4) * 8),
+                    fa);
+      }
 #pragma unroll
       for (int p = 0; p < kPairs; ++p)
         if (pair_on(p))
@@ -860,7 +968,7 @@ __device__ __forceinline__ void tc_product(const bf16* __restrict__ a,
         load_frags(k_first + kk + 1, af[(kk + 1) % 2], bfr[(kk + 1) % 2]);
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
-        if (kMask || p < n_pairs) {  // K2: each tile's own bit below
+        if (kMask || p < n_pairs) {  // kMask: each tile's own bit below
           if (tile_on(2 * p))
             mma_bf16(acc[2 * p], af[kk % 2], bfr[kk % 2][p][0],
                      bfr[kk % 2][p][1]);
@@ -897,17 +1005,19 @@ __device__ __forceinline__ float tc_sum(const float* sums, int i) {
   return v;
 }
 
-enum class FwdKind { kK1, kK2, kK4 };
+enum class FwdKind { kK1, kK2, kK4, kK3 };
 
-// The forward step t on the tensor cores, with K1's, K2's or K4's
-// epilogue. w_pack is (tiles * kRows, Hp): tile u's rows are W_hh rows
-// g*H + (kRows/4)*u + jj in order (g, jj), zero past H.
+// The forward step t on the tensor cores, with K1's, K2's, K3's or K4's
+// epilogue. w is the pack (tiles * kRows, Hp): tile u's rows are W_hh rows
+// g*H + (kRows/4)*u + jj in order (g, jj), zero past H; for K3, the int8
+// W_hh (4H, H) itself, read in that order.
 template <class Tl, FwdKind kKind>
 __global__ void __launch_bounds__(Tl::kThreads, 1)
 lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
-                 const bf16* __restrict__ w_pack,  // (., Hp)
-                 const int* __restrict__ valid,    // K2: (B,)
-                 int t,                            // K2: this step
+                 const typename Tl::Weight* __restrict__ w,
+                 const float* __restrict__ w_scale,  // K3: (4H,)
+                 const int* __restrict__ valid,    // K2, K3: (B,)
+                 int t,                            // K2, K3: this step
                  const bf16* __restrict__ h_in,    // (B, Hp) h_{t-1}
                  const bf16* __restrict__ c_prev,  // (B, H)
                  bf16* __restrict__ h_next,        // (B, Hp) h_t
@@ -918,14 +1028,16 @@ lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
                  bf16* __restrict__ c_seq_out,     // K4: (B, H)
                  int B, int H, int Hp) {
   constexpr int kUnitsT = Tl::kRows / 4;  // the block's hidden units
-  constexpr bool kRag = kKind == FwdKind::kK2;
+  constexpr bool kK3 = kKind == FwdKind::kK3;
+  constexpr bool kRag = kKind == FwdKind::kK2 || kK3;
+  static_assert(kK3 == (Tl::kQCopy != 0), "K3 alone reads int8 codes");
   static_assert(!kRag || Tl::kThreads >= Tl::kBatch, "a thread per row");
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned live_rows[(Tl::kBatch + 31) / 32];  // K2: a bit a row
+  __shared__ unsigned live_rows[(Tl::kBatch + 31) / 32];  // a bit a row
   float* sums = reinterpret_cast<float*>(smem);
   const int u0 = blockIdx.x * kUnitsT, b0 = blockIdx.y * Tl::kBatch;
   const int nb = min(Tl::kBatch, B - b0);
-  unsigned live = 0;  // K2: the n8 tiles with a row live at step t
+  unsigned live = 0;  // K2, K3: the n8 tiles with a row live at step t
   if constexpr (kRag) {  // the rows live at step t, and their n8 tiles
     const int r = threadIdx.x;
     const unsigned word =
@@ -939,12 +1051,19 @@ lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
   auto row_live = [&](int bb) {
     return !kRag || ((live_rows[bb >> 5] >> (bb & 31)) & 1u);
   };
-  tc_product<Tl, kRag>(w_pack + (size_t)blockIdx.x * Tl::kRows * Hp, Hp,
-                       h_in + (size_t)b0 * Hp, Hp, nb, live, Hp / kTcK,
-                       reinterpret_cast<bf16*>(smem), sums);
+  if constexpr (kK3)
+    tc_product<Tl, true>(w + (size_t)u0 * H, H, h_in + (size_t)b0 * Hp, Hp,
+                         nb, live, Hp / kTcK, reinterpret_cast<bf16*>(smem),
+                         sums, min(kUnitsT, H - u0));
+  else
+    tc_product<Tl, kRag>(w + (size_t)blockIdx.x * Tl::kRows * Hp, Hp,
+                         h_in + (size_t)b0 * Hp, Hp, nb, live, Hp / kTcK,
+                         reinterpret_cast<bf16*>(smem), sums);
   // The cell update of the block's (b, j) pairs, kEpi a thread: every
   // global load first, so their latencies overlap, then the arithmetic.
-  // A dead K2 row loads its carry instead: h into pre[e][0], c into cp.
+  // A dead K2 or K3 row loads its carry instead: h into pre[e][0], c into
+  // cp. K3 scales W_hh row g*H + j's sum by its scale, as the TPU kernel
+  // scales the accumulator.
   constexpr int kEpi =
       (Tl::kBatch * kUnitsT + Tl::kThreads - 1) / Tl::kThreads;
   float pre[kEpi][4], cp[kEpi];
@@ -960,9 +1079,11 @@ lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
     }
     const bf16* xp = x_proj + (size_t)(b0 + bb) * 4 * H + j;
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      pre[e][g] = to_f32(xp[g * H]) +
-                  tc_sum<Tl>(sums, bb * Tl::kRedLd + g * kUnitsT + jj);
+    for (int g = 0; g < 4; ++g) {
+      float dot = tc_sum<Tl>(sums, bb * Tl::kRedLd + g * kUnitsT + jj);
+      if constexpr (kK3) dot *= w_scale[g * H + j];
+      pre[e][g] = to_f32(xp[g * H]) + dot;
+    }
     cp[e] = to_f32(c_prev[(size_t)(b0 + bb) * H + j]);
   }
 #pragma unroll
@@ -972,7 +1093,7 @@ lstm_fwd_tc_step(const bf16* __restrict__ x_proj,  // (B, 4H), this step
     if (bb >= nb || j >= H) continue;
     const int b = b0 + bb;
     const size_t at = (size_t)b * H + j;
-    if (!row_live(bb)) {  // K2: the carry stays (exact: bf16 -> f32 -> bf16)
+    if (!row_live(bb)) {  // the carry stays (exact: bf16 -> f32 -> bf16)
       const bf16 h = from_f32<bf16>(pre[e][0]);
       out[at] = from_f32<bf16>(0.0f);
       h_next[(size_t)b * Hp + j] = h;
@@ -1096,12 +1217,13 @@ lstm_bwd_tc_step(const bf16* __restrict__ dz_in,    // (B, 4Hp) dz[t+1]
   if (product) cluster.sync();  // no block leaves while its sums are read
 }
 
-// K1, K2 or K4 in bf16: n_steps launches (K2: t_live). h_pad is (2, B,
+// K1-K4 in bf16: n_steps launches (K2, K3: t_live). h_pad is (2, B,
 // Hp), zero past H, with h0 in h_pad[0]; step t reads h_pad[t % 2] and
 // writes h_pad[(t + 1) % 2], and the last step also h_T. c ping-pongs
 // between c_T and c_scratch as in run().
 template <class Tl, FwdKind kKind>
-int run_fwd_tc(const bf16* xp, const bf16* w_pack, const int* valid,
+int run_fwd_tc(const bf16* xp, const typename Tl::Weight* w,
+               const float* w_scale, const int* valid,
                bf16* h_pad, const bf16* c0, bf16* out, bf16* gates,
                bf16* c_seq, bf16* h_t, bf16* c_t, bf16* c_scratch,
                int n_steps, int B, int H, int Hp, dim3 grid,
@@ -1117,7 +1239,8 @@ int run_fwd_tc(const bf16* xp, const bf16* w_pack, const int* valid,
   };
   for (int t = 0; t < n_steps; ++t) {
     step<<<grid, Tl::kThreads, Tl::kSmem, stream>>>(
-        xp + (size_t)t * 4 * BH, w_pack, valid, t, h_pad + (t % 2) * BHp,
+        xp + (size_t)t * 4 * BH, w, w_scale, valid, t,
+        h_pad + (t % 2) * BHp,
         t == 0 ? c0 : c_after(t - 1), h_pad + ((t + 1) % 2) * BHp,
         c_after(t), out + (size_t)t * BH, t == n_steps - 1 ? h_t : nullptr,
         kK4 ? gates + (size_t)t * 4 * BH : nullptr,
@@ -1128,11 +1251,15 @@ int run_fwd_tc(const bf16* xp, const bf16* w_pack, const int* valid,
   return (int)cudaGetLastError();
 }
 
-// K1 or K2 in bf16 on the tile of `batch` rows that tc_layout chose.
-template <FwdKind kKind, typename... Args>
+// K1, K2 or K3 in bf16 on the tile of `batch` rows that tc_layout chose
+// (K3: with its copy width).
+template <FwdKind kKind, int kQCopy = 0, typename... Args>
 int run_fwd_tc_tile(int batch, Args... args) {
-  if (batch == ServeTile::kBatch) return run_fwd_tc<ServeTile, kKind>(args...);
-  if (batch == FwdTile::kBatch) return run_fwd_tc<FwdTile, kKind>(args...);
+  using Serve = Tile<kTcServeRows, kTcServeBatch, kTcServeStages,
+                     kTcServeKSplit, kQCopy>;
+  using Fwd = Tile<kTcFwdRows, kTcBatch, kTcStages, kTcKSplit, kQCopy>;
+  if (batch == Serve::kBatch) return run_fwd_tc<Serve, kKind>(args...);
+  if (batch == Fwd::kBatch) return run_fwd_tc<Fwd, kKind>(args...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1193,7 +1320,8 @@ int fused_lstm_forward(int dtype, const void* x_proj, const void* w_hh,
   if (dtype == 1)
     return run_fwd_tc_tile<FwdKind::kK1>(
         batch, static_cast<const bf16*>(x_proj),
-        static_cast<const bf16*>(w_pack), static_cast<const int*>(nullptr),
+        static_cast<const bf16*>(w_pack), static_cast<const float*>(nullptr),
+        static_cast<const int*>(nullptr),
         static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
         static_cast<bf16*>(out), static_cast<bf16*>(nullptr),
         static_cast<bf16*>(nullptr), static_cast<bf16*>(h_t),
@@ -1219,8 +1347,9 @@ int fused_lstm_forward_gates(int dtype, const void* x_proj, const void* w_hh,
   if (dtype == 1)
     return run_fwd_tc<FwdTile, FwdKind::kK4>(
         static_cast<const bf16*>(x_proj), static_cast<const bf16*>(w_pack),
-        nullptr, static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
-        static_cast<bf16*>(out), static_cast<bf16*>(gates),
+        nullptr, nullptr, static_cast<bf16*>(h_pad),
+        static_cast<const bf16*>(c0), static_cast<bf16*>(out),
+        static_cast<bf16*>(gates),
         static_cast<bf16*>(c_seq), static_cast<bf16*>(h_t),
         static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch), T, B, H, Hp,
         dim3(gx, gy), s);
@@ -1280,7 +1409,8 @@ int fused_lstm_forward_ragged(int dtype, const void* x_proj, const void* w_hh,
   if (err != cudaSuccess || done) return (int)err;
   return run_fwd_tc_tile<FwdKind::kK2>(
       batch, static_cast<const bf16*>(x_proj),
-      static_cast<const bf16*>(w_pack), valid, static_cast<bf16*>(h_pad),
+      static_cast<const bf16*>(w_pack), static_cast<const float*>(nullptr),
+      valid, static_cast<bf16*>(h_pad),
       static_cast<const bf16*>(c0), static_cast<bf16*>(out),
       static_cast<bf16*>(nullptr), static_cast<bf16*>(nullptr),
       static_cast<bf16*>(h_t), static_cast<bf16*>(c_t),
@@ -1288,24 +1418,43 @@ int fused_lstm_forward_ragged(int dtype, const void* x_proj, const void* w_hh,
 }
 
 // K3: as K2, with w_hh_q int8 (4H, H) and w_scale f32 (4H,); dtype is the
-// activations' type.
+// activations' type. f32 runs the CUDA-core template. bf16 runs on the
+// tensor cores as K2 does, with h_pad, Hp, the grid and the tile's batch
+// rows, and no pack: it reads the codes where they lie, `copy` bytes at a
+// time (16 for even H, else 1; ops/fused_lstm.py::int8_copy_bytes picks
+// it), and reads no h_scratch.
 int fused_lstm_forward_ragged_int8(int dtype, const void* x_proj,
                                    const void* w_hh_q, const float* w_scale,
                                    const int* valid, const void* h0,
                                    const void* c0, void* out, void* h_t,
                                    void* c_t, void* h_scratch,
-                                   void* c_scratch, int T, int t_live, int B,
-                                   int H, void* stream) {
+                                   void* c_scratch, void* h_pad, int T,
+                                   int t_live, int B, int H, int Hp, int gx,
+                                   int gy, int batch, int copy,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_ragged<float, int8_t>(x_proj, w_hh_q, w_scale, valid, h0, c0,
                                      out, h_t, c_t, h_scratch, c_scratch, T,
                                      t_live, B, H, s);
-  if (dtype == 1)
-    return run_ragged<__nv_bfloat16, int8_t>(
-        x_proj, w_hh_q, w_scale, valid, h0, c0, out, h_t, c_t, h_scratch,
-        c_scratch, T, t_live, B, H, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || !(copy == 1 || (copy == 16 && H % 2 == 0)))
+    return (int)cudaErrorInvalidValue;
+  bool done = false;
+  const cudaError_t err = ragged_prologue<bf16>(
+      out, h0, c0, h_t, c_t, T, t_live, (size_t)B * H, s, &done);
+  if (err != cudaSuccess || done) return (int)err;
+  auto run = [&](auto width) {
+    return run_fwd_tc_tile<FwdKind::kK3, decltype(width)::value>(
+        batch, static_cast<const bf16*>(x_proj),
+        static_cast<const int8_t*>(w_hh_q), w_scale, valid,
+        static_cast<bf16*>(h_pad), static_cast<const bf16*>(c0),
+        static_cast<bf16*>(out), static_cast<bf16*>(nullptr),
+        static_cast<bf16*>(nullptr), static_cast<bf16*>(h_t),
+        static_cast<bf16*>(c_t), static_cast<bf16*>(c_scratch), t_live, B, H,
+        Hp, dim3(gx, gy), s);
+  };
+  if (copy == 16) return run(std::integral_constant<int, 16>());
+  return run(std::integral_constant<int, 1>());
 }
 
 const char* fused_lstm_error_string(int err) {

@@ -38,7 +38,7 @@ from code_intelligence_tpu_torch.ops.fused_lstm import (
 )
 from code_intelligence_tpu_torch.ops.lstm import LSTMState, lstm_layer
 from code_intelligence_tpu_torch.ops.qrnn import qrnn_layer
-from code_intelligence_tpu_torch.ops.quantize import SCALE_SUFFIX
+from code_intelligence_tpu_torch.ops.quantize import SCALE_SUFFIX, tree_bytes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -337,6 +337,14 @@ class AWDLSTMEncoder(nn.Module):
         if lay.rows not in packs:
             packs[lay.rows] = pack_w_hh_fwd(w_hh.detach(), lay)
         return packs[lay.rows]
+
+    def held_bytes(self) -> int:
+        """The bytes the encoder holds on its device: its weights and
+        scales, and the W_hh packs it keeps (none under int8: K3 reads the
+        codes where they lie)."""
+        packs = [p for _, _, by_rows in self._packs.values()
+                 for p in by_rows.values()]
+        return tree_bytes([list(self.parameters()), packs])
 
     def _qrnn(self, li: int, x: torch.Tensor, state, valid_lens, masks):
         """QRNN layer ``li`` on its input ``x``: ``(out, (h_T, x[:, -1]))``.

@@ -24,12 +24,13 @@ says what bounds them on an H100 and how they are laid out. The TPU's
 residency gates and tile choice (``fits_resident``,
 ``fits_resident_int8``, ``_pick_tiles*``, sublane padding) are VMEM
 budgets and have no counterpart here: every shape runs its kernel. In
-bf16, K1, K2, K4 and K5 run on the tensor cores and take ``W_hh`` in a
+bf16, K1-K5 run on the tensor cores. K1, K2, K4 and K5 take ``W_hh`` in a
 padded copy laid out for them (:func:`tc_layout`, :func:`pack_w_hh_fwd`,
 :func:`pack_w_hh_bwd`): K4 and K5 pack it per call, K1 and K2 take the
-copy a frozen encoder keeps (``w_pack``) or pack per call without one. f32
-K1, K2, K4, K5 and K3 run the CUDA-core kernels: the dtype picks the
-kernel, never the shape.
+copy a frozen encoder keeps (``w_pack``) or pack per call without one. K3
+reads its int8 codes where they lie, :func:`int8_copy_bytes` at a time,
+so an int8 model holds no copy. In f32 they run the CUDA-core kernels:
+the dtype picks the kernel, never the shape.
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs its
 plain version; on a CUDA device it launches its kernel or raises. The
@@ -92,8 +93,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_lstm_backward.restype = i
     lib.fused_lstm_forward_ragged.argtypes = [i, *[p] * 12, *[i] * 8, p]
     lib.fused_lstm_forward_ragged.restype = i
-    lib.fused_lstm_forward_ragged_int8.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                   p, p, p, i, i, i, i, p]
+    lib.fused_lstm_forward_ragged_int8.argtypes = [i, *[p] * 12, *[i] * 9, p]
     lib.fused_lstm_forward_ragged_int8.restype = i
     lib.fused_lstm_error_string.argtypes = [i]
     lib.fused_lstm_error_string.restype = ctypes.c_char_p
@@ -251,12 +251,21 @@ def _check_pack(w_pack: Optional[torch.Tensor], x_proj: torch.Tensor,
             f"{w_pack.dtype} {tuple(w_pack.shape)} on {w_pack.device}")
 
 
+def int8_copy_bytes(H: int) -> int:
+    """The bytes bf16 K3 copies at a time from a row of the int8 ``W_hh``
+    it reads in place (rows H bytes apart): for even H, the aligned
+    16-byte chunks around a row's columns by cp.async (its 2-byte fragment
+    reads then land on even offsets); for odd H, 1 by ordinary loads."""
+    return 16 if H % 2 == 0 else 1
+
+
 def _tc_operands(w_hh: torch.Tensor, h0: torch.Tensor,
                  layout: TensorCoreLayout, w_pack: Optional[torch.Tensor]):
     """The tensor-core forward step's ``W_hh`` (``w_pack``, or packed
-    now), its zero-padded ``(2, B, Hp)`` h scratch with ``h0`` in the
-    first half, and the layout's ints for the C entry."""
-    if w_pack is None:
+    now; None for K3's int8 codes, read in place), its zero-padded ``(2,
+    B, Hp)`` h scratch with ``h0`` in the first half, and the layout's ints
+    for the C entry."""
+    if w_pack is None and w_hh.dtype != torch.int8:
         w_pack = pack_w_hh_fwd(w_hh, layout)
     B, H = h0.shape
     h_pad = h0.new_zeros((2, B, layout.hp))
@@ -502,7 +511,7 @@ def fused_lstm_forward_ragged(x_proj: torch.Tensor, w_hh: torch.Tensor,
                                                valid_lens)
     return _launch_ragged("K2", "fused_lstm_forward_ragged", ragged_launches,
                           x_proj, (w_hh,), h0, c0, valid_lens, steps,
-                          tensor_core=True, w_pack=w_pack)
+                          w_pack=w_pack)
 
 
 def fused_lstm_forward_ragged_int8(x_proj: torch.Tensor,
@@ -514,8 +523,9 @@ def fused_lstm_forward_ragged_int8(x_proj: torch.Tensor,
                                    ) -> Tuple[torch.Tensor, LSTMState]:
     """K3: K2 with ``w_hh_q (4H, H) int8`` and ``w_hh_scale (4H,) f32``,
     one scale per output row, applied to the product ``h @ w_hh_q^T``
-    before ``x_proj`` is added. Activations are f32 or bf16. CPU tensors
-    run the plain version; CUDA tensors launch K3."""
+    before ``x_proj`` is added. Activations are f32 or bf16 (bf16: on the
+    tensor cores, reading the codes in place). CPU tensors run the plain
+    version; CUDA tensors launch K3."""
     _, _, H = _check(x_proj, w_hh_q, h0, c0, w_dtype=torch.int8)
     if (tuple(w_hh_scale.shape) != (4 * H,)
             or w_hh_scale.dtype != torch.float32
@@ -534,14 +544,13 @@ def fused_lstm_forward_ragged_int8(x_proj: torch.Tensor,
 def _launch_ragged(kernel: str, entry: str, counter: LaunchCounter,
                    x_proj: torch.Tensor, weights, h0: torch.Tensor,
                    c0: torch.Tensor, valid_lens: torch.Tensor, steps: int,
-                   tensor_core: bool = False,
                    w_pack: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, LSTMState]:
     """Launch K2 or K3 (the C function ``entry``, whose weight arguments
-    are ``weights``) for ``steps`` live steps on the tensors' card.
-    ``tensor_core`` (K2): the entry ends with the tensor-core step's
-    operands, which bf16 fills (``w_pack``, or ``W_hh`` packed now) and
-    f32 leaves null and 0."""
+    are ``weights``) for ``steps`` live steps on the tensors' card. The
+    entry ends with the tensor-core step's operands, which bf16 fills and
+    f32 leaves null and 0: K2's ``w_pack`` (or ``W_hh`` packed now) and
+    the h scratch; K3's h scratch and its copy width."""
     if x_proj.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {x_proj.device}")
     _check_launchable(kernel, (x_proj, *weights, h0, c0, valid_lens))
@@ -552,13 +561,14 @@ def _launch_ragged(kernel: str, entry: str, counter: LaunchCounter,
     h_t, c_t, h_scr, c_scr = (torch.empty((B, H), **kw) for _ in range(4))
     if T == 0:
         return out, (h_t.copy_(h0), c_t.copy_(c0))
-    tail, tc = [], []
-    if tensor_core:
-        tail, tc = [None, None], [0, 0, 0, 0]
-        if x_proj.dtype == torch.bfloat16:
-            w_pack, h_pad, tc = _tc_operands(weights[0], h0, tc_layout(B, H),
-                                             w_pack)
-            tail = [w_pack, h_pad]
+    h_pad, tc = None, [0, 0, 0, 0]
+    if x_proj.dtype == torch.bfloat16:
+        w_pack, h_pad, tc = _tc_operands(weights[0], h0, tc_layout(B, H),
+                                         w_pack)
+    int8 = weights[0].dtype == torch.int8
+    tail = [h_pad] if int8 else [w_pack, h_pad]
+    if int8:
+        tc.append(int8_copy_bytes(H))
     lib = _build.load("fused_lstm", _bind)
     with torch.cuda.device(x_proj.device):
         err = getattr(lib, entry)(

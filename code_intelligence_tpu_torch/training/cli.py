@@ -20,7 +20,8 @@ import logging
 from pathlib import Path
 
 # flags of the JAX CLI that the port does not take yet, with the ROADMAP
-# item that ports them
+# item that ports them; the mesh sizes are taken at 1 (one card is one
+# device), and --flight_ring at 0 (no ring)
 NOT_PORTED = {
     "seq_parallel": "queue 1 item 11, multi-GPU",
     "data_parallel": "queue 1 item 11, multi-GPU",
@@ -29,7 +30,10 @@ NOT_PORTED = {
     "wandb_mode": "queue 1 item 4, trackers",
     "metrics_port": "queue 1 item 4, device observability",
     "flight_ring": "queue 1 item 4, the flight recorder",
+    "halt_on_divergence": "queue 1 item 4, the divergence sentinel",
 }
+NO_OP = {"seq_parallel": 1, "data_parallel": 1, "model_parallel": 1,
+         "flight_ring": 0}
 
 # the reference's dropouts (the JAX package's constants.BASE_DROPOUTS)
 BASE_DROPOUTS = {"output_p": 0.1, "hidden_p": 0.15, "input_p": 0.25,
@@ -81,16 +85,25 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--{name}", type=int, default=None)
     p.add_argument("--wandb_project", default=None)
     p.add_argument("--wandb_mode", default=None)
+    # either spelling exits: the port has no divergence sentinel
+    p.add_argument("--halt_on_divergence", default=None,
+                   action=argparse.BooleanOptionalAction)
     return p
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Exit naming the ROADMAP item of any JAX flag the port does not
+    take, unless its value asks for nothing (``NO_OP``)."""
+    for name, item in NOT_PORTED.items():
+        value = getattr(args, name)
+        if value is not None and value != NO_OP.get(name):
+            raise SystemExit(f"--{name} is not ported to the PyTorch "
+                             f"package yet (ROADMAP.md {item})")
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    for name, item in NOT_PORTED.items():
-        value = getattr(args, name)
-        if value not in (None, False):
-            raise SystemExit(f"--{name} is not ported to the PyTorch "
-                             f"package yet (ROADMAP.md {item})")
+    refuse_unported(args)
     if args.qrnn_pallas:
         args.qrnn = True  # the kernel flag implies the QRNN variant
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")

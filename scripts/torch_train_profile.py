@@ -32,13 +32,14 @@ B, T, SEED, WARM, TRACED = 104, 67, 0, 2, 2
 
 def kernel_name(key: str) -> str:
     """K1-K7 by name. In bf16, K1, K4 and K5 are the tensor-core steps,
-    the forward one told apart by its FwdKind argument (0 K1, 1 K2, 2 K4);
+    the forward one told apart by its FwdKind argument (0 K1, 1 K2, 2 K4,
+    3 K3);
     in f32 K4 is lstm_step's kGates instantiation (its last template
     argument true), mangled or demangled."""
     if "lstm_fwd_tc_step" in key:
-        kind = [k for i, k in enumerate(("K1", "K2", "K4"))
+        kind = [k for i, k in enumerate(("K1", "K2", "K4", "K3"))
                 if f"FwdKind){i}" in key or f"FwdKindE{i}E" in key]
-        return f"{kind[0] if kind else 'K1/K2/K4'} lstm_fwd_tc_step"
+        return f"{kind[0] if kind else 'K1-K4'} lstm_fwd_tc_step"
     if "lstm_bwd_tc_step" in key:
         return "K5 lstm_bwd_tc_step"
     if "forget_mult_bwd" in key:

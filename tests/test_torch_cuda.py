@@ -126,6 +126,37 @@ def test_ragged_kernels_match_plain(cuda_device, kernel, dtype, T, B, H):
         assert err <= ATOL[dtype], err
 
 
+# bf16 K3 reads its codes a byte at a time (H=37) and in 16-byte chunks
+# shifted by rows 4 to 12 bytes (H=2500) or 0 bytes (H=800) past a 16-byte
+# boundary, on the serve tile and (B=104) the 112-row one
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,B,H", [(5, 13, 37), (16, 32, 2500),
+                                   (16, 32, 800), (16, 104, 2500)])
+def test_k3_extreme_codes_and_a_zero_row_match_plain(cuda_device, dtype, T,
+                                                     B, H):
+    """Codes of -127 and 127 only, a scale of its own for every row, and
+    one W_hh row of zeros with scale 1.0 (the quantizer's zero-row guard):
+    the widening of the codes and the per-row scale against the plain
+    loop."""
+    x, _, h, c = _inputs(T, B, H, cuda_device, dtype)
+    rng = np.random.default_rng(1)
+    q = np.where(rng.random((4 * H, H)) < 0.5, -127, 127).astype(np.int8)
+    scale = (rng.uniform(0.5, 2.0, 4 * H) / (127 * np.sqrt(H))).astype(
+        np.float32)
+    q[H + H // 2], scale[H + H // 2] = 0, 1.0  # a forget-gate row
+    args = [x, torch.from_numpy(q).to(cuda_device),
+            torch.from_numpy(scale).to(cuda_device), h, c,
+            _valid(T, B, cuda_device)]
+    out, (hT, cT) = K1.fused_lstm_forward_ragged_int8(
+        *args, t_live=int(args[-1].max()))
+    ref_out, (ref_h, ref_c) = K1.fused_lstm_forward_ragged_int8_plain(*args)
+    for got, want in ((out, ref_out), (hT, ref_h), (cT, ref_c)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])

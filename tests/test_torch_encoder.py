@@ -166,6 +166,8 @@ def test_frozen_bf16_encoder_packs_w_hh_once_per_weight_version(monkeypatch):
     run()
     assert len(built) == cfg.n_layers  # once a layer, not once a call
     first = [held(li) for li in range(cfg.n_layers)]
+    assert enc.held_bytes() == sum(  # the packs count as held
+        t.numel() * t.element_size() for t in [*enc.parameters(), *first])
     enc.load_state_dict(params_from_numpy(random_encoder_arrays(cfg, 1)))
     run()
     assert len(built) == 2 * cfg.n_layers
@@ -179,11 +181,16 @@ def test_frozen_bf16_encoder_packs_w_hh_once_per_weight_version(monkeypatch):
 
 
 def test_encoder_keeps_no_pack_where_no_kernel_takes_one():
-    """f32 weights, a trainable encoder and the plain path take no pack:
-    K1/K2 in f32 run the CUDA-core kernels, training packs per call."""
+    """f32 weights, a trainable encoder, the plain path and int8 take no
+    pack: K1/K2 in f32 run the CUDA-core kernels, training packs per call,
+    K3 reads its codes in place. Such an encoder holds its weights only."""
     bf16 = AWDLSTMConfig(n_layers=2, dtype="bfloat16", **TINY)
+    int8 = dataclasses.replace(bf16, precision="int8")
     for cfg, kw in ((AWDLSTMConfig(n_layers=2, **TINY), {}),
-                    (bf16, {"trainable": True}), (bf16, {"plain": True})):
+                    (bf16, {"trainable": True}), (bf16, {"plain": True}),
+                    (int8, {})):
         enc = AWDLSTMEncoder(cfg, **kw)
         assert all(enc.w_hh_pack(li, 4) is None
                    for li in range(cfg.n_layers))
+        assert enc.held_bytes() == sum(t.numel() * t.element_size()
+                                       for t in enc.parameters())

@@ -133,3 +133,23 @@ def test_wrapper_checks_a_callers_w_hh_pack():
                               w_pack=pack)
     with pytest.raises(ValueError, match="K4"):
         K1.fused_lstm_forward(x, w, h, c, with_gates=True, w_pack=pack)
+
+
+@pytest.mark.parametrize("H,copy", [(800, 16), (2500, 16), (40, 16),
+                                    (130, 16), (37, 1)])
+def test_k3_reads_the_int8_codes_in_place(H, copy):
+    """bf16 K3's host side: the copy width follows H (the card tests' H
+    take both, and rows at every even offset from a 16-byte boundary),
+    and its tensor-core operands are the h scratch and the layout's ints,
+    with no pack of the codes."""
+    assert K1.int8_copy_bytes(H) == copy
+    B = 5
+    w_q = torch.ones((4 * H, H), dtype=torch.int8)
+    h0 = torch.randn((B, H)).to(torch.bfloat16)
+    lay = K1.tc_layout(B, H)
+    w_pack, h_pad, ints = K1._tc_operands(w_q, h0, lay, None)
+    assert w_pack is None
+    assert h_pad.shape == (2, B, lay.hp) and lay.hp % K1.TC_K == 0
+    assert torch.equal(h_pad[0, :, :H], h0) and not h_pad[0, :, H:].any()
+    assert not h_pad[1].any()
+    assert ints == [lay.hp, *lay.fwd_grid, lay.batch]

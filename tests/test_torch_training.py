@@ -323,3 +323,28 @@ def test_cli_trains_on_cpu_and_the_engine_serves_the_export(tmp_path):
     assert np.isfinite(qrnn["loss"]) and np.isfinite(qrnn["val_loss"])
     with pytest.raises(SystemExit, match="not ported"):
         main(args + ["--data_parallel", "2"])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--model_parallel", "1", "--seq_parallel", "1", "--data_parallel",
+      "1"], None),
+    (["--model_parallel", "2"], "11"),
+    (["--seq_parallel", "2"], "11"),
+    (["--halt_on_divergence"], "4"),
+    (["--no-halt_on_divergence"], "4")])
+def test_cli_takes_one_device_flags_and_names_the_item_of_others(flags, item):
+    """The JAX CLI's own mesh defaults (1) mean one device and pass; any
+    other mesh size, and either spelling of the divergence flag, exit
+    naming their ROADMAP item."""
+    from code_intelligence_tpu.training.cli import build_parser as jax_parser
+    from code_intelligence_tpu_torch.training import cli
+
+    required = ["--corpus_dir", "c", "--model_dir", "m"]
+    jax_args = jax_parser().parse_args(required)
+    assert (jax_args.model_parallel, jax_args.seq_parallel) == (1, 1)
+    args = cli.build_parser().parse_args(required + flags)
+    if item is None:
+        cli.refuse_unported(args)
+    else:
+        with pytest.raises(SystemExit, match=f"queue 1 item {item},"):
+            cli.refuse_unported(args)
