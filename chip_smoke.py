@@ -27,11 +27,16 @@ on failure (exit code 1, and no result line):
    H=800,
    and one layer's gradients through K4/K5 against autograd through the
    plain loop (T=67, B=104, H=800). The QRNN forget-mult kernels: K6
-   (forward) and K7 (its adjoint) at T=7/B=5/H=40, the slot step (T=64,
-   B=32) and the training shape (T=67, B=104), H=2500 and H=800; K8
-   (ragged forward) at T=7/B=5/H=40 and the ragged step (T=16, B=32,
-   H=2500 and H=800) with the same valid lengths and a case with every row dead,
-   its tail equal to the frozen carry; and one QRNN layer's gradients
+   (forward) and K7 (its adjoint) at T=7/B=5/H=40, at T=19/B=3/H=129
+   (K6 there takes its per-lane walk: B*H is no whole number of 16-byte
+   vectors), the slot step (T=64, B=32) and the training shape (T=67,
+   B=104), H=2500 and H=800; K8 (ragged forward) at T=7/B=5/H=40, at
+   T=16/B=1/H=8 (one block), T=16/B=8/H=129 (its two-lane chunks straddle
+   rows of different lengths) and the ragged step (T=16, B=32,
+   H=2500 and H=800) with the same valid lengths, a case with every row
+   dead and one with every row full, its tail equal to the frozen carry;
+   K6 and K8 must also equal their plain loops bit for bit (max |diff|
+   0); and one QRNN layer's gradients
    (window 2, T=67, B=104, in 800, H=2500) through K6/K7 against autograd
    through the plain loop.
 4. Three serve paths on one flagship-width export (60,000-token vocab,
@@ -89,10 +94,13 @@ on failure (exit code 1, and no result line):
    window and tokens/s from the CLI run's second host read. K6 at the
    slot step and the training shape, K7 at the training shape and K8 at
    the ragged step, bf16, H=2500: their device time by ``torch.profiler``
-   after a flush of the L2 cache and back to back, and a whole call by
-   CUDA events, beside the bytes they must move over the HBM rate; no
-   single PyTorch call computes a forget-mult, so they have no library
-   yardstick.
+   after a flush of the L2 cache (``ms``) and back to back (``ms_warm``),
+   and a whole call by CUDA events, beside the bytes they must move over
+   the HBM rate and the profiler's device time of a one-element fill, the
+   floor under any single launch; no single PyTorch call computes a
+   forget-mult, so they have no library yardstick. K6 and K8 stream
+   through a TMA-fed ring of shared-memory stages, one block per SM; the
+   ``notes`` of their entries say which shapes take the per-lane walk.
 
 The line before the last is one JSON object ``{"kernels": [...]}``
 (K1-K8; ``product`` says where K1-K5 multiply); the last is ``{"ok":
@@ -943,6 +951,20 @@ def train_timing_phase() -> dict:
 # which in bf16 can tip one rounding of a stored value (2^-8 relative).
 FM_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2.0 ** -7)}
 QRNN_SERVE_STEP = (64, 32)  # the slot step (T, B); the ragged step is T=16
+_WALK = ("B*H*item not a multiple of 16 bytes (of the checked shapes only "
+         "T19_B3_H129), or a tensor off a 16-byte boundary, takes the "
+         "per-lane walk")
+FM_NOTES = {
+    "K6": "ring: one block per SM on a contiguous run of the B*H plane; a "
+          "producer warp fills shared-memory stages of 8 steps of (z, f), "
+          "up to 128 KB, with TMA bulk copies, a lane a copy (mbarriers); "
+          "each consumer thread advances 2 lanes and stores them. " + _WALK,
+    "K7": "per-lane walk in reverse time, 8 steps of loads ahead; left "
+          "alone: 54% of its bound",
+    "K8": "K6's ring with a length per element; a block loads up to its "
+          "longest live row (its first stage before the lengths are read). "
+          + _WALK,
+}
 
 
 def fm_inputs(T, B, H, dtype, seed=SEED):
@@ -956,15 +978,19 @@ def fm_inputs(T, B, H, dtype, seed=SEED):
     return [t.to(dtype).contiguous() for t in (z, f, h0, cot)]
 
 
-def _fm_err(got, want, dtype, what) -> float:
+def _fm_err(got, want, dtype, what, exact=False) -> float:
+    """The largest difference, within ``FM_TOL``; 0 when ``exact``."""
     atol, rtol = FM_TOL[dtype]
     for a, b in zip(got, want):
         if not torch.isfinite(a.float()).all().item():
             raise AssertionError(f"{what} gave non-finite values")
         torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                    rtol=rtol, msg=lambda m: f"{what}: {m}")
-    return max((a.float() - b.float()).abs().max().item()
-               for a, b in zip(got, want))
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    if exact and err != 0:
+        raise AssertionError(f"{what}: max |diff| {err}, not bit for bit")
+    return err
 
 
 def check_qrnn_layer_grads(T, B, n_in, H, dtype) -> float:
@@ -998,13 +1024,17 @@ def check_qrnn_layer_grads(T, B, n_in, H, dtype) -> float:
 
 
 def qrnn_kernel_checks() -> dict:
-    """K6 and K7 against their plain versions at a small odd shape, the
-    slot step and the training shapes; K8 at the ragged step with valid
-    lengths of 0, 1, mid and full and with every row dead, its tail equal
-    to the frozen carry; one layer's gradients through K6/K7."""
+    """K6 and K7 against their plain versions at small odd shapes (one
+    for K6's per-lane walk), the slot step and the training shapes; K8 at
+    small shapes (one block; chunks straddling rows) and at the ragged
+    step with valid lengths of 0, 1, mid and full, with every row dead and
+    with every row full, its tail equal to
+    the frozen carry; K6 and K8 bit for bit; one layer's gradients through
+    K6/K7."""
     errs = {"K6": {}, "K7": {}, "K8": {}, "layer_grad_rel": {}}
-    shapes = ((7, 5, 40), (*QRNN_SERVE_STEP, 2500), (*QRNN_SERVE_STEP, 800),
-              (TRAIN_BPTT, TRAIN_BS, 2500), (TRAIN_BPTT, TRAIN_BS, 800))
+    shapes = ((7, 5, 40), (19, 3, 129), (*QRNN_SERVE_STEP, 2500),
+              (*QRNN_SERVE_STEP, 800), (TRAIN_BPTT, TRAIN_BS, 2500),
+              (TRAIN_BPTT, TRAIN_BS, 800))
     for T, B, H in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             key = f"T{T}_B{B}_H{H}_{str(dtype).split('.')[-1]}"
@@ -1014,14 +1044,15 @@ def qrnn_kernel_checks() -> dict:
             torch.cuda.synchronize()
             errs["K6"][key] = _fm_err(
                 [out], [FM.forget_mult_forward_plain(z, f, h0)], dtype,
-                f"K6 {key}")
+                f"K6 {key}", exact=True)
             errs["K7"][key] = _fm_err(
                 grads, FM.forget_mult_backward_plain(z, f, out, h0, cot),
                 dtype, f"K7 {key}")
             print(f"K6/K7 vs plain {key}: max |diff| {errs['K6'][key]:.3g} "
                   f"/ {errs['K7'][key]:.3g}", flush=True)
-    for T, B, H in ((7, 5, 40), (16, 32, 2500), (16, 32, 800)):
-        cases = {**valid_cases(T, B), "all_dead": [0] * B}
+    for T, B, H in ((7, 5, 40), (16, 1, 8), (16, 8, 129), (16, 32, 2500),
+                    (16, 32, 800)):
+        cases = {**valid_cases(T, B), "all_dead": [0] * B, "full": [T] * B}
         for dtype in (torch.float32, torch.bfloat16):
             z, f, h0, _ = fm_inputs(T, B, H, dtype)
             for case, valid in cases.items():
@@ -1031,7 +1062,7 @@ def qrnn_kernel_checks() -> dict:
                 torch.cuda.synchronize()
                 errs["K8"][key] = _fm_err(
                     [out], [FM.forget_mult_ragged_plain(z, f, h0, vl)],
-                    dtype, f"K8 {key}")
+                    dtype, f"K8 {key}", exact=True)
                 for b, v in enumerate(valid):
                     frozen = out[v - 1, b] if v else h0[b]
                     if not torch.equal(out[v:, b], frozen.expand(T - v, H)):
@@ -1104,7 +1135,12 @@ def qrnn_timing_phase() -> dict:
     256 MB write has pushed its inputs out of the 50 MB L2, as the bound
     assumes; ``ms_warm`` the same back to back on the same inputs;
     ``ms_call`` a whole call on an idle card by CUDA events, the wrapper's
-    host time included."""
+    host time included. ``launch_floor_ms`` is the device time the
+    profiler gives a one-element fill, the least any launch shows;
+    ``same_bytes_ms`` (K6, K8) PyTorch's ``add(z, f, out=)`` after the
+    same flush: the bytes of a K6 call, in its vectorized elementwise
+    kernel, a yardstick of the HBM rate this access pattern gets (not the
+    same function, so not ``library_ms``; K8 reads only live steps)."""
     dtype, H = torch.bfloat16, 2500
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(SEED + 3)
@@ -1117,7 +1153,10 @@ def qrnn_timing_phase() -> dict:
         "K7_train": ("K7", (TRAIN_BPTT, TRAIN_BS, H), None),
         "K8_ragged_step": ("K8", (16, 32, H), valid),
     }
-    out = {"dtype": "bfloat16", "ragged_valid_lens": valid}
+    one = torch.zeros(1, device="cuda")
+    out = {"dtype": "bfloat16", "ragged_valid_lens": valid,
+           "launch_floor_ms": device_ms(lambda: one.fill_(1.0),
+                                        "elementwise", 50)}
     for name, (kernel, (T, B, Hh), lens) in cases.items():
         z, f, h0, cot = fm_inputs(T, B, Hh, dtype, seed=SEED + 10)
         h = FM.forget_mult_forward(z, f, h0)
@@ -1130,8 +1169,12 @@ def qrnn_timing_phase() -> dict:
                    lambda: FM.forget_mult_ragged_plain(z, f, h0, vl)),
         }[kernel]
         cu_name = "forget_mult_bwd" if kernel == "K7" else "forget_mult_fwd"
+        buf = torch.empty_like(z)
         out[name] = {
             "kernel": kernel, "shape": {"T": T, "B": B, "H": Hh},
+            **({} if kernel == "K7" else {"same_bytes_ms": device_ms(
+                lambda: torch.add(z, f, out=buf), "CUDAFunctor_add", 20,
+                before=flush.zero_)}),
             "ms": device_ms(fn, cu_name, 20, before=flush.zero_),
             "ms_warm": device_ms(fn, cu_name, 50),
             "ms_call": cuda_ms_each(flush.zero_, lambda _: fn(), reps=20),
@@ -1269,6 +1312,7 @@ def main() -> int:
         "K7": {"train": qrnn_train["launches"]["K7"]},
         "K8": {"serve_ragged": qrnn_serve["ragged"]["launches"],
                "serve_ragged_int8": qrnn_serve["ragged_int8"]["launches"]}}
+    slot = qrnn_timing["K6_slot_step"]
     for name, fn, line, timed in (
             ("K6", "forget_mult_forward", "207", "K6_train"),
             ("K7", "forget_mult_backward", "276", "K7_train"),
@@ -1284,12 +1328,20 @@ def main() -> int:
             "max_abs_err": max(qrnn_errs[name].values()),
             "max_abs_err_by_case": qrnn_errs[name],
             "ms": t["ms"],
+            "ms_warm": t["ms_warm"],
+            **({"ms_slot_step": slot["ms"], "ms_warm_slot_step":
+                slot["ms_warm"], "bound_ms_slot_step": slot["bound_ms"],
+                "same_bytes_ms_slot_step": slot["same_bytes_ms"]}
+               if name == "K6" else {}),
+            "same_bytes_ms": t.get("same_bytes_ms"),
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
             "library": "none: no single PyTorch call computes a forget-mult",
             "timed_shape": {**t["shape"], "dtype": "bfloat16"},
+            "launch_floor_ms": qrnn_timing["launch_floor_ms"],
+            "notes": FM_NOTES[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,13 @@ Ports of the JAX package's ``ops/pallas_qrnn.py`` kernels, over time-major
 :func:`forget_mult_fused` pairs K6 and K7 in one ``torch.autograd.Function``,
 as the JAX package pairs them in one ``custom_vjp``. The kernels are
 hand-written CUDA in ``csrc/forget_mult.cu``, one launch per call; its
-header says what bounds them. Each wrapper runs its plain version on CPU
-tensors; on a CUDA tensor it launches its kernel or raises.
+header says what bounds them. K6 and K8 stream z and f through a ring of
+shared-memory stages fed by TMA bulk copies, one block per SM, when the
+``B * H`` plane is whole 16-byte vectors and every tensor starts on a
+16-byte boundary (every flagship shape), and walk one thread per lane
+otherwise; the C entry chooses from the shape and the pointers. Each
+wrapper runs its plain version on CPU tensors; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations

@@ -365,8 +365,9 @@ def test_layer_grads_on_the_kernels_match_plain_autograd(cuda_device, dtype):
 # the bounds allow one f32 ulp of difference, which in bf16 can tip one
 # rounding of the stored output (2^-8 relative).
 FM_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-6, 2.0 ** -7)}
+# (19, 3, 129) is no whole number of 16-byte vectors: K6/K8's per-lane walk
 FM_SHAPES = [(7, 5, 40), (1, 1, 8), (19, 3, 129), (64, 32, 2500),
-             (67, 104, 800)]
+             (64, 32, 800), (67, 104, 800), (67, 104, 2500)]
 
 
 def _fm_args(T, B, H, device, dtype, seed=0):
@@ -410,14 +411,17 @@ def test_k6_k7_match_plain(cuda_device, dtype, T, B, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (16, 32, 2500),
-                                   (16, 32, 800)])
+# at (16, 8, 129) _valid's lengths make K8's 2-lane chunks straddle two rows
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (16, 1, 8), (16, 8, 129),
+                                   (16, 32, 2500), (16, 32, 800),
+                                   (16, 104, 2500)])
 def test_k8_matches_plain_and_freezes_the_carry(cuda_device, dtype, T, B, H):
     from code_intelligence_tpu_torch.ops import forget_mult as FM
 
     z, f, h0, _ = _fm_args(T, B, H, cuda_device, dtype)
-    for valid in (_valid(T, B, cuda_device),
-                  torch.zeros((B,), dtype=torch.int32, device=cuda_device)):
+    for fill in (None, 0, T):
+        valid = (_valid(T, B, cuda_device) if fill is None else
+                 torch.full((B,), fill, dtype=torch.int32, device=cuda_device))
         before = FM.forget_mult_ragged_launches.count
         out = FM.forget_mult_ragged(z, f, h0, valid)
         torch.cuda.synchronize()
